@@ -1,0 +1,55 @@
+"""Static guard: the PyTorch port and chip_smoke.py import no JAX, no Flax,
+nothing of the JAX package, and no PIL at module level.
+
+The machine with the card has none of JAX, Flax or PIL, so any such import
+there ends the run before a kernel is built.
+"""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "vit_reranking_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "vit_reranking_tpu")
+
+
+def _imports(tree):
+    """(module name, inside a function?) for every import statement."""
+    found = []
+
+    def visit(node, in_fn):
+        for child in ast.iter_child_nodes(node):
+            fn = in_fn or isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda))
+            if isinstance(child, ast.Import):
+                found.extend((a.name, fn) for a in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                found.append((child.module or "", fn))
+            visit(child, fn)
+
+    visit(tree, False)
+    return found
+
+
+def test_port_files_found():
+    assert (ROOT / "chip_smoke.py").is_file()
+    assert len(FILES) > 20
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_and_no_module_level_pil(path):
+    for name, in_fn in _imports(ast.parse(path.read_text(), str(path))):
+        top = name.split(".")[0]
+        assert top not in BANNED, f"{path.name} imports {name}"
+        assert not (top == "PIL" and not in_fn), f"{path.name} imports PIL at module level"
+
+
+def test_guard_catches_banned_imports():
+    bad = ast.parse(
+        "import jax.numpy\nfrom vit_reranking_tpu.ops import x\nfrom PIL import Image\n"
+        "def f():\n    from PIL import Image\n"
+    )
+    assert _imports(bad) == [
+        ("jax.numpy", False), ("vit_reranking_tpu.ops", False), ("PIL", False), ("PIL", True),
+    ]

@@ -1,0 +1,1 @@
+"""cli sub-package of the PyTorch/CUDA port."""

@@ -1,0 +1,67 @@
+"""Threaded host-side batch loader.
+
+Port of vit_reranking_tpu/data/loader.py: images are made (or decoded) in a
+thread pool while the device computes, and batches come out as stacked numpy
+arrays (labels, NHWC float32 images, indices).  Class-balanced training
+samplers come with the training slice.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures as cf
+import itertools
+from typing import Iterator, List
+
+import numpy as np
+
+
+PREFETCH = 4  # batches assembled ahead of the consumer
+
+
+class DataLoader:
+    """Iterates (labels, images, indices) batches of ``batch_size``, in
+    dataset order, the last batch possibly short."""
+
+    def __init__(self, dataset, batch_size: int, num_workers: int = 8):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.num_workers = max(1, num_workers)
+
+    def _index_batches(self) -> Iterator[List[int]]:
+        n = len(self.dataset)
+        for s in range(0, n, self.batch_size):
+            yield list(range(s, min(s + self.batch_size, n)))
+
+    def __len__(self):
+        return -(-len(self.dataset) // self.batch_size)
+
+    def __iter__(self):
+        def fetch(batch_idx):
+            items = [self.dataset[i] for i in batch_idx]
+            labels = np.asarray([it[0] for it in items], np.int32)
+            images = np.stack([it[1] for it in items]).astype(np.float32)
+            idxs = np.asarray([it[2] for it in items], np.int32)
+            return labels, images, idxs
+
+        with cf.ThreadPoolExecutor(self.num_workers) as pool:
+            it = self._index_batches()
+            pending = [pool.submit(fetch, b) for b in itertools.islice(it, PREFETCH)]
+            for batch_idx in it:
+                done = pending.pop(0)
+                pending.append(pool.submit(fetch, batch_idx))
+                yield done.result()
+            for fut in pending:
+                yield fut.result()
+
+
+def build_dataset(opt):
+    """Evaluation loaders ``{'testing', 'evaluation'}`` for ``opt.dataset``
+    (the JAX package's ``build_dataset`` also returns the training loader
+    and its sampler, which come with the training slice)."""
+    from . import datasets as ds
+
+    splits = ds.select(opt.dataset, opt)
+    return {
+        name: DataLoader(splits[name], batch_size=opt.bs, num_workers=opt.kernels)
+        for name in ("testing", "evaluation")
+    }

@@ -1,0 +1,1 @@
+"""engine sub-package of the PyTorch/CUDA port."""
