@@ -1,12 +1,20 @@
 """Smoke run of the PyTorch/CUDA port (vit_reranking_tpu_torch) on one NVIDIA card.
 
 Builds the port's CUDA kernels from vit_reranking_tpu_torch/csrc/, holds each
-against its plain PyTorch version at the shapes of the main path, runs the
-flagship evaluation through the port's CLI entry point (CvT-13 with
-embed_dim 128 at 224 px with attention rollout, exact top-100, Sinkhorn OT
-rerank, R@1 / RP / MAP@R on a 128-image synthetic set, random weights from a
-seeded generator), checks that both kernels carried it, and checks the
-model's output on the card against the CPU path on a small input.
+against its plain PyTorch version at the shapes of the main paths, and drives
+both paths through the port's CLI entry points with random weights from a
+seeded generator:
+
+  * evaluation: the flagship rerank (CvT-13 with embed_dim 128 at 224 px
+    with attention rollout, exact top-100, Sinkhorn OT rerank, R@1 / RP /
+    MAP@R on a 128-image synthetic set), carried by kernels K1 and K2;
+  * training: train_baseline (full CvT-13, margin loss, distance miner,
+    Adam, f32) for 3 steps at batch 112 and one in-train evaluation,
+    carried by kernel K3 forward and backward.
+
+For each path it checks that its kernels carried it (launch counts set to 0
+just before and read just after), and it checks the model's forward and one
+train step on the card against the CPU path on a small input.
 
 Every phase prints one line as it ends.  Before the last line come one JSON
 line with the kernels' numbers and the card's name and power limit; the last
@@ -31,6 +39,13 @@ FP32_OPS_PER_S = 67e12
 
 K1_TOL = 1e-5  # kernel vs plain scores: f32 mat-vec sums in another order
 FWD_TOL = 1e-4  # card vs CPU forward: cuDNN/cuBLAS vs CPU f32 sum order, 13 blocks deep
+# K3 vs plain: the online softmax and the 64-wide tiles sum in another order;
+# dk and dv sum 3136 rows in another order, so their bound is relative
+K3_FWD_TOL = 1e-5
+K3_GRAD_RTOL = 1e-4
+# card vs CPU train step: the forward's f32 sum-order differences (FWD_TOL
+# above) pass through BatchNorm on 4 images and the backward of 13 blocks
+STEP_RTOL = 1e-4
 
 
 def say(*parts):
@@ -180,6 +195,97 @@ def phase_k2(torch):
     return entry
 
 
+def phase_k3(torch):
+    """Kernel K3, forward and backward, against its plain versions at the
+    main path's shape: CvT-13 stage 0 at 224 px and batch 112 (BH=112,
+    T=3136, Tkv=784, D=64), with the yardstick of
+    scaled_dot_product_attention on the same inputs."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from vit_reranking_tpu_torch.ops.attention import (
+        kv_resident_attention, kv_resident_attention_plain,
+    )
+
+    BH, T, Tkv, D = 112, 3136, 784, 64
+    scale = D ** -0.5  # CvT's full-dim scale; stage 0 has one head of 64
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q, do = (torch.randn(BH, T, D, device="cuda", generator=gen) for _ in range(2))
+    k, v = (torch.randn(BH, Tkv, D, device="cuda", generator=gen) for _ in range(2))
+
+    with torch.no_grad():
+        out = kv_resident_attention(q, k, v, scale)
+        ref = kv_resident_attention_plain(q, k, v, scale)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    og = kv_resident_attention(qg, kg, vg, scale)
+    grads = torch.autograd.grad(og, (qg, kg, vg), do, retain_graph=True)
+    # the plain version's gradient is autograd's, through a kept graph that
+    # is timed below as the plain backward
+    rq, rk, rv = (t.clone().requires_grad_() for t in (q, k, v))
+    ro = kv_resident_attention_plain(rq, rk, rv, scale)
+    ref_grads = torch.autograd.grad(ro, (rq, rk, rv), do, retain_graph=True)
+    torch.cuda.synchronize()
+    fwd_err = float((out - ref).abs().max())
+    rel = {n: float((a - b).abs().max() / b.abs().max())
+           for n, a, b in zip(("dq", "dk", "dv"), grads, ref_grads)}
+    bwd_err = max(float((a - b).abs().max()) for a, b in zip(grads, ref_grads))
+    del ref, ref_grads
+
+    backend = None
+    for b in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+              SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([b]):
+                F.scaled_dot_product_attention(q[:1, None], k[:1, None], v[:1, None], scale=scale)
+            backend = b
+            break
+        except RuntimeError:
+            continue
+    q4, k4, v4 = (t.view(BH, 1, -1, D).clone().requires_grad_() for t in (q, k, v))
+    with sdpa_kernel([backend]):
+        o4 = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+        sdpa_fwd_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4.detach(), k4.detach(), v4.detach(), scale=scale), reps=5)
+        sdpa_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+            o4, (q4, k4, v4), do.view(BH, 1, T, D), retain_graph=True), reps=5)
+        sdpa_fb_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(q4, k4, v4, scale=scale), (q4, k4, v4),
+            do.view(BH, 1, T, D)), reps=5)
+    del q4, k4, v4, o4
+
+    with torch.no_grad():
+        fwd_ms = cuda_ms(torch, lambda: kv_resident_attention(q, k, v, scale), reps=10)
+        fwd_plain_ms = cuda_ms(torch, lambda: kv_resident_attention_plain(q, k, v, scale), reps=3)
+    bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(og, (qg, kg, vg), do, retain_graph=True),
+                     reps=5)
+    bwd_plain_ms = cuda_ms(torch, lambda: torch.autograd.grad(ro, (rq, rk, rv), do,
+                                                              retain_graph=True), reps=3)
+    del ro, rq, rk, rv
+    elem = 4
+    fwd_bound = bound((q.numel() * 2 + k.numel() * 2) * elem, 4 * T * Tkv * D * BH)
+    bwd_bound = bound((q.numel() * 4 + k.numel() * 4) * elem, 10 * T * Tkv * D * BH)
+    say(f"[K3 fwd BH={BH} T={T} Tkv={Tkv} D={D}] max_abs_err={fwd_err:.3e} "
+        f"kernel_ms={fwd_ms:.4f} plain_ms={fwd_plain_ms:.4f} sdpa_ms={sdpa_fwd_ms:.4f} "
+        f"bound_ms={fwd_bound[0]:.5f} ({fwd_bound[1]})")
+    say(f"[K3 bwd BH={BH} T={T} Tkv={Tkv} D={D}] max_abs_err={bwd_err:.3e} rel_err "
+        + " ".join(f"{n}={e:.3e}" for n, e in rel.items())
+        + f" kernel_ms={bwd_ms:.4f} plain_ms={bwd_plain_ms:.4f} sdpa_bwd_ms={sdpa_bwd_ms:.4f} "
+        f"bound_ms={bwd_bound[0]:.5f} ({bwd_bound[1]})")
+    say(f"[K3] sdpa backend in f32: {backend.name}; sdpa fwd+bwd {sdpa_fb_ms:.4f} ms, "
+        f"K3 fwd+bwd {fwd_ms + bwd_ms:.4f} ms")
+    if not fwd_err <= K3_FWD_TOL:
+        raise AssertionError(f"K3 forward disagrees with its plain version: {fwd_err}")
+    bad = {n: e for n, e in rel.items() if not e <= K3_GRAD_RTOL}
+    if bad:
+        raise AssertionError(f"K3 backward disagrees with autograd of the plain version: {bad}")
+    return {
+        "fwd": dict(max_abs_err=fwd_err, ms=fwd_ms, plain_ms=fwd_plain_ms,
+                    bound_ms=fwd_bound[0], bound_by=fwd_bound[1], library_ms=sdpa_fwd_ms),
+        "bwd": dict(max_abs_err=bwd_err, ms=bwd_ms, plain_ms=bwd_plain_ms,
+                    bound_ms=bwd_bound[0], bound_by=bwd_bound[1], library_ms=sdpa_bwd_ms),
+    }
+
+
 MAIN_ARGS = [
     "--dataset", "synthetic", "--synthetic_classes", "8", "--synthetic_per_class", "16",
     "--synthetic_size", "224", "--bs", "32", "--arch", "cvt_13_normalize",
@@ -285,6 +391,164 @@ def phase_reference(torch):
         raise AssertionError(f"card and CPU forward disagree beyond {FWD_TOL}: {bad}")
 
 
+TRAIN_ARGS = [
+    "--dataset", "synthetic", "--arch", "cvt_13_normalize", "--loss", "margin",
+    "--batch_mining", "distance", "--bs", "112", "--samples_per_class", "2",
+    "--n_epochs", "1", "--evalevery", "1", "--synthetic_classes", "8",
+    "--synthetic_per_class", "48", "--synthetic_size", "224", "--embed_dim", "128",
+    "--seed", "0", "--kernels", "8", "--device", "cuda",
+]
+
+
+def phase_train(torch):
+    """The training path: train_baseline.main from a scratch working
+    directory with --save_path there (384 images at batch 112: 3 steps, then
+    one evaluation of the 384-image test split), kernel K3's launch counts
+    set to 0 just before and read just after."""
+    from vit_reranking_tpu_torch.cli import train_baseline
+    from vit_reranking_tpu_torch.ops.attention import kv_resident_attention
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as work:
+        os.chdir(work)
+        try:
+            kv_resident_attention.fwd_launches = 0
+            kv_resident_attention.bwd_launches = 0
+            t0 = time.perf_counter()
+            summary = train_baseline.main(TRAIN_ARGS + ["--save_path", os.path.join(work, "runs")])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {"fwd": kv_resident_attention.fwd_launches,
+                        "bwd": kv_resident_attention.bwd_launches}
+        finally:
+            os.chdir(cwd)
+    losses, secs = summary["step_loss"], summary["step_seconds"]
+    n_eval = -(-8 * 48 // 112)
+    say("[train] step losses " + " ".join(f"{x:.6f}" for x in losses))
+    say(f"[train] step seconds: first {secs[0]:.4f}, warm "
+        + " ".join(f"{x:.4f}" for x in secs[1:]))
+    say(f"[train] in-train eval R@1={summary['eval'][-1]['r1']:.4f} "
+        f"RP={summary['eval'][-1]['rp']:.4f} MAP@R={summary['eval'][-1]['mapr']:.4f}; "
+        f"train_baseline.main {wall:.3f}s; K3 launches {launches}")
+    if len(losses) != 3 or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train losses {losses}")
+    if not (launches["fwd"] >= 3 + n_eval and launches["bwd"] == 3):
+        raise AssertionError(f"K3 was not launched as the training path needs: {launches}")
+    for m, val in summary["eval"][-1].items():
+        if not (math.isfinite(val) and 0.0 <= val <= 100.0):
+            raise AssertionError(f"in-train metric {m} = {val}")
+    return launches
+
+
+def phase_train_profile(torch):
+    """Warm train steps of the same configuration: K3 against the
+    materialising attention (models/cvt.py USE_KV_RESIDENT_ATTENTION off) in
+    turns on, off, off, on, each for 3 timed steps with its peak memory;
+    then one step under torch.profiler: the device's busy share and the
+    kernels that take it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vit_reranking_tpu_torch.cli.common import build_training, run_train_step
+    from vit_reranking_tpu_torch.core.config import from_args
+    from vit_reranking_tpu_torch.data.loader import build_dataset
+    from vit_reranking_tpu_torch.models import cvt
+
+    opt = from_args(TRAIN_ARGS)
+    loaders, _ = build_dataset(opt)
+    lab, images, _ = next(iter(loaders["training"]))
+    _, _, state = build_training(opt, len(loaders["training"]), torch.device("cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def timed_steps(use_kernel, n=3):
+        cvt.USE_KV_RESIDENT_ATTENTION = use_kernel
+        try:
+            run_train_step(state, lab, images, gen, "cuda")  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(n):
+                t0 = time.perf_counter()
+                float(run_train_step(state, lab, images, gen, "cuda")["loss"])
+                times.append(time.perf_counter() - t0)
+            return sorted(times)[n // 2], torch.cuda.max_memory_allocated() / 2**30
+        finally:
+            cvt.USE_KV_RESIDENT_ATTENTION = True
+
+    ab = [(use, *timed_steps(use)) for use in (True, False, False, True)]
+    say("[train-ab] warm step median s / peak GiB, K3 on (kv-resident) vs off "
+        "(materialising): " + ", ".join(
+            f"{'on' if use else 'off'} {t:.4f} s {m:.2f} GiB" for use, t, m in ab))
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_train_step(state, lab, images, gen, "cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        say(f"[train-profile] step {wall:.4f}s; the profiler recorded no device events: "
+            "device busy share not measured")
+        return
+    busy, end, by_name = 0.0, -math.inf, {}
+    for start, stop, name in spans:
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+        total, count = by_name.get(name, (0.0, 0))
+        by_name[name] = (total + stop - start, count + 1)
+    k3 = sum(t for n, (t, _) in by_name.items() if "dkdv_kernel" in n or "dq_kernel" in n
+             or "fwd_kernel" in n or "delta_kernel" in n)
+    say(f"[train-profile] one warm step {wall:.4f}s under the profiler; device busy "
+        f"{busy / 1e3:.3f} ms = {busy / 1e4 / wall:.2f}% of wall; K3 kernels {k3 / 1e3:.3f} ms")
+    for name, (total, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
+        say(f"[train-profile] {total / 1e3:9.3f} ms {count:6d}x {name[:100]}")
+
+
+def phase_train_reference(torch):
+    """One train step on the card against the same step on the CPU: the
+    same full CvT-13 weights (drop-path 0), 4 images at 224 px, fixed
+    triplets, Adam with two groups; loss and gradient norm compared."""
+    import copy
+    from types import SimpleNamespace
+
+    from vit_reranking_tpu_torch.engine.train import init_train_state, make_optimizer, train_step
+    from vit_reranking_tpu_torch.losses.margin import MarginLoss
+    from vit_reranking_tpu_torch.miners.common import Triplets
+    from vit_reranking_tpu_torch.models.cvt import CvTNetwork, CvTSpec
+
+    class FixedMiner:
+        name = "distance"
+
+        def __call__(self, batch, labels, generator=None):
+            idx = lambda *i: torch.tensor(i, device=batch.device)
+            return Triplets(idx(0, 1, 2, 3), idx(1, 0, 3, 2), idx(2, 3, 0, 1),
+                            torch.ones(4, dtype=torch.bool, device=batch.device))
+
+    base = CvTNetwork(embed_dim=128, spec=CvTSpec(drop_path_rate=(0.0, 0.0, 0.0)),
+                      generator=torch.Generator().manual_seed(0))
+    x = torch.randn(4, 3, 224, 224, generator=torch.Generator().manual_seed(3))
+    labels = torch.tensor([0, 0, 1, 1])
+    opt = SimpleNamespace(n_classes=2)
+
+    def one_step(device):
+        model = copy.deepcopy(base).to(device)
+        crit = MarginLoss(opt, FixedMiner()).to(device)
+        optim = make_optimizer("adam", 4e-4, {"model": list(model.parameters()),
+                                              "criterion": list(crit.parameters())},
+                               {"model": 1e-5, "criterion": 5e-4})
+        m = train_step(init_train_state(model, crit, optim), x.to(device), labels.to(device))
+        return {k: float(v) for k, v in m.items()}
+
+    card, cpu = one_step("cuda"), one_step("cpu")
+    rel = {k: abs(card[k] - cpu[k]) / abs(cpu[k]) for k in ("loss", "grad_l2")}
+    say(f"[train-reference] card {card} cpu {cpu} rel_err "
+        + " ".join(f"{k}={v:.3e}" for k, v in rel.items()))
+    bad = {k: v for k, v in rel.items() if not v <= STEP_RTOL}
+    if bad or not all(math.isfinite(v) for v in card.values()):
+        raise AssertionError(f"card and CPU train steps disagree beyond {STEP_RTOL}: {bad}")
+
+
 def main():
     import torch
 
@@ -301,9 +565,13 @@ def main():
     phase_build(native)
     k1 = phase_k1(torch)
     k2 = phase_k2(torch)
+    k3 = phase_k3(torch)
     launches = phase_main(torch)
     phase_profile(torch)
     phase_reference(torch)
+    k3_launches = phase_train(torch)
+    phase_train_profile(torch)
+    phase_train_reference(torch)
     kernels = [
         dict(name="sinkhorn_score", route="cuda",
              source="vit_reranking_tpu_torch/csrc/sinkhorn_score.cu",
@@ -313,6 +581,14 @@ def main():
              source="vit_reranking_tpu_torch/csrc/filter_threshold.cu",
              replaces="vit_reranking_tpu/ops/rollout.py:29",
              launches=launches["filter_threshold"], **k2),
+        dict(name="kv_attention_fwd", route="cuda",
+             source="vit_reranking_tpu_torch/csrc/kv_attention.cu",
+             replaces="vit_reranking_tpu/ops/attention_pallas.py:48",
+             launches=k3_launches["fwd"], **k3["fwd"]),
+        dict(name="kv_attention_bwd", route="cuda",
+             source="vit_reranking_tpu_torch/csrc/kv_attention.cu",
+             replaces="vit_reranking_tpu/ops/attention_pallas.py:66",
+             launches=k3_launches["bwd"], **k3["bwd"]),
     ]
     say(f"[done] {time.perf_counter() - t_start:.3f}s in all")
     say(json.dumps({"kernels": kernels}))

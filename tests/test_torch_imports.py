@@ -6,6 +6,8 @@ there ends the run before a kernel is built.
 """
 
 import ast
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -35,6 +37,32 @@ def _imports(tree):
 def test_port_files_found():
     assert (ROOT / "chip_smoke.py").is_file()
     assert len(FILES) > 20
+    names = {str(p.relative_to(ROOT)) for p in FILES}
+    for module in ("ops/attention", "engine/train", "losses/margin", "miners/distance",
+                   "data/samplers", "core/checkpoint", "core/logger", "cli/train_baseline"):
+        assert f"vit_reranking_tpu_torch/{module}.py" in names
+
+
+def test_every_port_module_imports_without_jax():
+    """Import every module of the port and chip_smoke.py in a fresh process
+    where JAX, Flax, PIL and the JAX package cannot be imported, as on the
+    machine with the card."""
+    code = f"""
+import importlib, pkgutil, sys
+for name in {BANNED + ("PIL",)!r}:
+    sys.modules[name] = None
+sys.path.insert(0, {str(ROOT)!r})
+import vit_reranking_tpu_torch as pkg
+mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for m in mods:
+    importlib.import_module(m)
+import chip_smoke
+print(len(mods))
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) > 20
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

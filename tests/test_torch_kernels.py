@@ -1,4 +1,4 @@
-"""The port's two CUDA kernels against their plain PyTorch versions, and the
+"""The port's CUDA kernels against their plain PyTorch versions, and the
 wrappers' dispatch and build plumbing.
 
 This file imports no JAX, so it also runs on the machine with the card,
@@ -6,7 +6,10 @@ where the kernel tests run (``python -m pytest --noconftest
 tests/test_torch_kernels.py``; the repository's conftest.py imports JAX).
 Without a card those tests skip: a CUDA kernel has no CPU mode.  Kernel K1
 matches its plain version to 1e-5 on O(1) scores (mat-vec sums in another
-order); kernel K2 is bitwise equal to its plain version.
+order); kernel K2 is bitwise equal to its plain version; kernel K3's forward
+matches its plain version to 1e-5 and its dq, dk, dv match autograd through
+the plain version to 1e-4 of their largest magnitude (online softmax and
+tiled sums in another order).
 """
 
 import numpy as np
@@ -14,6 +17,9 @@ import pytest
 import torch
 
 from vit_reranking_tpu_torch.ops import native
+from vit_reranking_tpu_torch.ops.attention import (
+    kv_resident_attention, kv_resident_attention_plain,
+)
 from vit_reranking_tpu_torch.ops.rerank import sinkhorn_scores, sinkhorn_scores_plain
 from vit_reranking_tpu_torch.ops.rollout import filter_threshold, filter_threshold_plain
 
@@ -128,3 +134,38 @@ def test_filter_kernel_bitwise_matches_plain_on_card(cuda, B, N):
     assert filter_threshold.launches == before + 1
     assert torch.equal(out, ref)
     assert int((out == 0).sum()) == B * k
+
+
+@pytest.mark.parametrize(
+    "BH,T,Tkv,D",
+    [(2, 3136, 784, 64), (3, 100, 50, 64), (2, 72, 130, 128)],
+    ids=["stage0", "ragged", "d128"],
+)
+def test_kv_attention_kernel_matches_plain_on_card(cuda, BH, T, Tkv, D):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, do = (torch.randn(BH, T, D, device=cuda, generator=gen) for _ in range(2))
+    k, v = (torch.randn(BH, Tkv, D, device=cuda, generator=gen) for _ in range(2))
+    scale = D ** -0.5
+    before = (kv_resident_attention.fwd_launches, kv_resident_attention.bwd_launches)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    out = kv_resident_attention(qg, kg, vg, scale)
+    grads = torch.autograd.grad(out, (qg, kg, vg), do)
+    rq, rk, rv = (t.clone().requires_grad_() for t in (q, k, v))
+    ref = kv_resident_attention_plain(rq, rk, rv, scale)
+    ref_grads = torch.autograd.grad(ref, (rq, rk, rv), do)
+    torch.cuda.synchronize()
+    assert (kv_resident_attention.fwd_launches, kv_resident_attention.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert float((out - ref).abs().max()) <= 1e-5
+    for a, b in zip(grads, ref_grads):
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def test_kv_attention_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 16, 32, device=cuda)
+    with pytest.raises(ValueError):
+        kv_resident_attention(q, q, q, 0.1)  # D 32
+    q = torch.zeros(1, 16, 64, device=cuda, dtype=torch.float64)
+    with pytest.raises(ValueError):
+        kv_resident_attention(q, q, q, 0.1)  # float64

@@ -26,7 +26,7 @@ import torch
 
 from .. import models as archs
 from ..core.config import Config, from_args
-from ..data.loader import build_dataset
+from ..data.loader import build_eval_loaders
 from ..engine.extract import extract_features
 from ..engine.rerank_eval import rerank_evaluate
 
@@ -47,7 +47,7 @@ def run_eval(opt: Config, trunc_nums=(0, 100)):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    test_loader = build_dataset(opt)["testing"]
+    test_loader = build_eval_loaders(opt)["testing"]
     gen = torch.Generator().manual_seed(opt.seed)
     model = archs.select(opt.arch, opt, generator=gen).to(device).eval()
 

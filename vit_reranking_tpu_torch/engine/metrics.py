@@ -44,6 +44,27 @@ def metrics_from_ranks(
     return {"r1": r1, "rp": rp, "mapr": mapr}
 
 
+def metrics_from_scores(
+    sims: torch.Tensor,
+    query_labels: torch.Tensor,
+    gallery_labels: torch.Tensor,
+    mask_diagonal: bool = True,
+) -> Dict[str, torch.Tensor]:
+    """Metrics straight from a (Q, N) score matrix (reference `get_metrics`).
+
+    With ``mask_diagonal`` the self-similarity is set to -100 before ranking
+    (queries assumed to be the gallery in the same order), matching
+    train_baseline.py:275-278.  Ties rank the lower gallery index first, as
+    the JAX package's stable argsort does.
+    """
+    if mask_diagonal:
+        Q, N = sims.shape
+        eye = torch.eye(N, dtype=torch.bool, device=sims.device)[:Q]
+        sims = torch.where(eye, torch.full_like(sims, -100.0), sims)
+    tops = torch.argsort(-sims, dim=-1, stable=True)
+    return metrics_from_ranks(tops, query_labels, gallery_labels)
+
+
 def summarize(per_query: Dict[str, torch.Tensor]) -> Dict[str, float]:
     """Dataset-level numbers in percent, matching the reference's
     division by N/100 (evaluation/eval_cvt_diml.py:402-405)."""

@@ -17,6 +17,7 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 
 def trunc_normal_(t: torch.Tensor, std: float = 0.02,
@@ -56,9 +57,37 @@ class Mlp(nn.Module):
         return self.drop(self.fc2(self.drop(quick_gelu(self.fc1(x)))))
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm with Flax's training-mode statistics update.
+
+    Training mode normalises with the biased batch variance, as torch and
+    Flax both do, and updates ``running_var`` with that same biased variance,
+    as Flax's ``nn.BatchNorm`` does (torch's own update uses the unbiased
+    one).  ``momentum`` 0.1 here is Flax's 0.9:
+    ``running = 0.9 * running + 0.1 * batch``.  Evaluation mode reads the
+    running statistics, as torch's does."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        with torch.no_grad():
+            dims = (0, 2, 3)
+            mean = torch.mean(x, dim=dims)
+            var = torch.var(x, dim=dims, unbiased=False)
+            keep = 1.0 - self.momentum
+            self.running_mean.mul_(keep).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(keep).add_(var, alpha=self.momentum)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
 class DropPath(nn.Module):
-    """Stochastic depth: drop the residual branch per sample (identity in
-    evaluation mode)."""
+    """Stochastic depth: in training mode, keep each sample's residual branch
+    with probability ``1 - rate`` and scale it by ``1 / (1 - rate)``, as the
+    JAX package's DropPath does (identity in evaluation mode).  The draws come
+    from PyTorch's global generator on the tensor's device, which
+    ``cli/common.py::seed_everything`` seeds."""
 
     def __init__(self, rate: float):
         super().__init__()

@@ -10,9 +10,12 @@ Module and parameter names follow the JAX package's Flax names
 (``trunk.stage0.block0.attn.conv_proj_q.conv`` ...) so ``weights.py`` can
 carry its variables over.  Images are NCHW; attention-rollout maps are
 filtered and pooled to the target grid inside the forward pass
-(ops/rollout.py), as in the JAX package.  Attention always materialises its
-probabilities here (the JAX package's materialising path, cvt.py:253-270):
-the fused attention kernels that skip them belong to the training slice.
+(ops/rollout.py), as in the JAX package.  Stages without a cls token send
+attention through ``ops/attention.py::cvt_attention`` (kernel K3 on the card)
+under the JAX package's conditions (cvt.py:224-239), except that the JAX
+package's "only on a TPU" becomes "always": on the CPU the wrapper runs K3's
+plain version, which computes the same function.  ``ret_attn`` (rollout)
+keeps the materialising path, which it needs the probabilities of.
 """
 
 from __future__ import annotations
@@ -24,9 +27,10 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..ops import attention as kv_attention
 from ..ops.rollout import block_rollout_map
 from ..ops.similarity import l2_normalize
-from .common import DropPath, LayerNormFp32, Mlp, init_weights, trunc_normal_
+from .common import BatchNorm2d, DropPath, LayerNormFp32, Mlp, init_weights, trunc_normal_
 
 
 @dataclass(frozen=True)
@@ -58,6 +62,11 @@ class CvTSpec:
 
 CVT13_SPEC = CvTSpec()
 
+# Route cls-free stages' attention (not ret_attn, attn_drop 0) through
+# ops/attention.py::cvt_attention, which itself gates on the score count
+# (KV_RESIDENT_MIN_SCORES: stage 0 only at 224 px).
+USE_KV_RESIDENT_ATTENTION = True
+
 
 class ConvProj(nn.Module):
     """Depthwise conv + BN projection used for q/k/v (reference cvt.py:131-151).
@@ -68,7 +77,7 @@ class ConvProj(nn.Module):
     def __init__(self, dim: int, kernel: int, stride: int, padding: int):
         super().__init__()
         self.conv = nn.Conv2d(dim, dim, kernel, stride, padding, groups=dim, bias=False)
-        self.bn = nn.BatchNorm2d(dim, eps=1e-5, momentum=0.1)
+        self.bn = BatchNorm2d(dim, eps=1e-5, momentum=0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.bn(self.conv(x)).flatten(2).transpose(1, 2)
@@ -116,7 +125,14 @@ class CvTAttention(nn.Module):
         v = heads(self.proj_v(v))
         # scale uses the FULL dim, not head dim (reference cvt.py:105);
         # scores and softmax in f32
-        score = torch.matmul(q.float(), k.float().transpose(-1, -2)) * self.dim**-0.5
+        scale = self.dim**-0.5
+        if (USE_KV_RESIDENT_ATTENTION and not ret_attn and cls_tok is None
+                and self.attn_drop.p == 0.0):
+            out = kv_attention.cvt_attention(q, k, v, scale)
+            if out is not None:
+                out = out.transpose(1, 2).reshape(B, -1, C)
+                return self.proj_drop(self.proj(out)), None
+        score = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
         attn = self.attn_drop(torch.softmax(score, dim=-1))
         out = torch.matmul(attn.to(v.dtype), v)
         out = out.transpose(1, 2).reshape(B, -1, C)

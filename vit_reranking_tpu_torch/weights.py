@@ -1,4 +1,4 @@
-"""Carry the JAX package's Flax variables into the port's modules.
+"""Carry the JAX package's Flax variables into the port's modules, and back.
 
 The inverse of the torch -> Flax maps in vit_reranking_tpu/core/convert.py.
 The port's modules are named after the Flax modules (``trunk/stage0/block0/
@@ -12,7 +12,9 @@ so each Flax leaf maps to one parameter or buffer:
   * ``bias`` and other parameters (``cls_token``) as they are.
 
 The variables arrive as nested dicts of numpy arrays (``np.asarray`` of the
-JAX leaves); nothing here imports JAX.
+JAX leaves); nothing here imports JAX.  The same map carries a criterion's
+parameters (the margin loss's ``beta``: ``load_jax_params(criterion,
+{"params": loss_params})``).  :func:`export_params` is the inverse.
 """
 
 from __future__ import annotations
@@ -71,3 +73,33 @@ def load_jax_params(module: nn.Module, variables: Mapping) -> nn.Module:
         raise KeyError(f"module entries not in the Flax variables: {missing}")
     module.load_state_dict(filled, strict=False)
     return module
+
+
+def flax_name(name: str, ndim: int) -> str:
+    """The Flax path (``collection/module/.../leaf``) of the module entry
+    ``name`` (a parameter or buffer of ``ndim`` dimensions)."""
+    *mods, leaf = name.split(".")
+    collection = "params"
+    if leaf in ("running_mean", "running_var"):
+        collection, leaf = "batch_stats", leaf[len("running_"):]
+    elif leaf == "weight":
+        leaf = "kernel" if ndim in (2, 4) else "scale"
+    return "/".join([collection, *mods, leaf])
+
+
+def export_params(module: nn.Module) -> Dict[str, np.ndarray]:
+    """The module's parameters and BatchNorm statistics in the Flax tree's
+    layout, flat: ``"params/trunk/stage0/.../kernel"`` or
+    ``"batch_stats/.../mean"`` -> numpy array (the inverse of
+    :func:`load_jax_params`)."""
+    out: Dict[str, np.ndarray] = {}
+    for name, val in module.state_dict().items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        arr = val.detach().cpu().numpy()
+        if arr.ndim == 4 and name.endswith(".weight"):
+            arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        elif arr.ndim == 2 and name.endswith(".weight"):
+            arr = arr.T  # (out, in) -> (in, out)
+        out[flax_name(name, arr.ndim)] = np.ascontiguousarray(arr)
+    return out
