@@ -10,10 +10,15 @@ seeded generator:
     MAP@R on a 128-image synthetic set), carried by kernels K1 and K2;
   * training: train_baseline (full CvT-13, margin loss, distance miner,
     Adam, f32) for 3 steps at batch 112 and one in-train evaluation,
-    carried by kernel K3 forward and backward.
+    carried by kernel K3 forward and backward;
+  * Swin-T training: train_baseline --arch swin_normalize (full Swin-T at
+    224 px, f32) for 3 steps at batch 112 and one in-train evaluation, with
+    the window-attention kernels on: K4a (packed, the default variant)
+    forward and backward; then one step and an evaluation batch with the
+    batched variant, K4b.
 
 For each path it checks that its kernels carried it (launch counts set to 0
-just before and read just after), and it checks the model's forward and one
+just before and read just after), and it checks the models' forward or one
 train step on the card against the CPU path on a small input.
 
 Every phase prints one line as it ends.  Before the last line come one JSON
@@ -24,6 +29,7 @@ and so does a run without a CUDA card.
     python3 chip_smoke.py
 """
 
+import contextlib
 import importlib.util
 import json
 import math
@@ -46,6 +52,10 @@ K3_GRAD_RTOL = 1e-4
 # card vs CPU train step: the forward's f32 sum-order differences (FWD_TOL
 # above) pass through BatchNorm on 4 images and the backward of 13 blocks
 STEP_RTOL = 1e-4
+# K4 vs plain: the same f32 window sums in another order; dq, dk, dv and
+# dbias/dadd held to their largest magnitude (dbias sums B * nW windows)
+K4_FWD_TOL = 1e-5
+K4_GRAD_RTOL = 1e-4
 
 
 def say(*parts):
@@ -80,6 +90,47 @@ def gpu_name_and_limit():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def scratch_cwd():
+    """Run inside a temporary working directory (the CLIs write their logs,
+    CSVs and checkpoints there), removed afterwards."""
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as work:
+        os.chdir(work)
+        try:
+            yield work
+        finally:
+            os.chdir(cwd)
+
+
+def report_profile(tag, what, wall, prof, top, port_kernels=()):
+    """From a torch.profiler run over ``wall`` seconds: the device's busy
+    share and the kernels that take it; ``port_kernels`` are name parts of
+    the port's own kernels, whose time is summed."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        say(f"[{tag}] {what} {wall:.4f}s; the profiler recorded no device events: "
+            "device busy share not measured")
+        return
+    busy, end, by_name = 0.0, -math.inf, {}
+    for start, stop, name in spans:
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+        total, count = by_name.get(name, (0.0, 0))
+        by_name[name] = (total + stop - start, count + 1)
+    line = (f"[{tag}] {what} {wall:.4f}s under the profiler; device busy "
+            f"{busy / 1e3:.3f} ms = {busy / 1e4 / wall:.2f}% of wall")
+    if port_kernels:
+        mine = sum(t for n, (t, _) in by_name.items() if any(k in n for k in port_kernels))
+        line += f"; port kernels {mine / 1e3:.3f} ms"
+    say(line)
+    for name, (total, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        say(f"[{tag}] {total / 1e3:9.3f} ms {count:6d}x {name[:100]}")
 
 
 def phase_host(torch, native):
@@ -195,13 +246,30 @@ def phase_k2(torch):
     return entry
 
 
+def sdpa_backend(*args, **kw):
+    """The first of scaled_dot_product_attention's backends (flash, cuDNN,
+    memory-efficient, math) that takes these inputs."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for b in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+              SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([b]):
+                F.scaled_dot_product_attention(*args, **kw)
+            return b
+        except RuntimeError:
+            continue
+    raise RuntimeError("no scaled_dot_product_attention backend ran")
+
+
 def phase_k3(torch):
     """Kernel K3, forward and backward, against its plain versions at the
     main path's shape: CvT-13 stage 0 at 224 px and batch 112 (BH=112,
     T=3136, Tkv=784, D=64), with the yardstick of
     scaled_dot_product_attention on the same inputs."""
     import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.attention import sdpa_kernel
 
     from vit_reranking_tpu_torch.ops.attention import (
         kv_resident_attention, kv_resident_attention_plain,
@@ -231,16 +299,7 @@ def phase_k3(torch):
     bwd_err = max(float((a - b).abs().max()) for a, b in zip(grads, ref_grads))
     del ref, ref_grads
 
-    backend = None
-    for b in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
-              SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
-        try:
-            with sdpa_kernel([b]):
-                F.scaled_dot_product_attention(q[:1, None], k[:1, None], v[:1, None], scale=scale)
-            backend = b
-            break
-        except RuntimeError:
-            continue
+    backend = sdpa_backend(q[:1, None], k[:1, None], v[:1, None], scale=scale)
     q4, k4, v4 = (t.view(BH, 1, -1, D).clone().requires_grad_() for t in (q, k, v))
     with sdpa_kernel([backend]):
         o4 = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
@@ -300,16 +359,11 @@ def run_main_path(torch):
     from vit_reranking_tpu_torch.cli.test_diml import run_eval
     from vit_reranking_tpu_torch.core.config import from_args
 
-    cwd = os.getcwd()
-    with tempfile.TemporaryDirectory() as work:
-        os.chdir(work)
-        try:
-            t0 = time.perf_counter()
-            results = run_eval(from_args(MAIN_ARGS), trunc_nums=(0, 100))
-            torch.cuda.synchronize()
-            return results, time.perf_counter() - t0
-        finally:
-            os.chdir(cwd)
+    with scratch_cwd():
+        t0 = time.perf_counter()
+        results = run_eval(from_args(MAIN_ARGS), trunc_nums=(0, 100))
+        torch.cuda.synchronize()
+        return results, time.perf_counter() - t0
 
 
 def phase_main(torch):
@@ -340,27 +394,11 @@ def phase_main(torch):
 def phase_profile(torch):
     """A second, warm run of the main path under torch.profiler: the device's
     busy share of the wall time and the kernels that take it."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall = run_main_path(torch)
-    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    if not spans:
-        say(f"[profile] warm run_eval {wall:.3f}s; the profiler recorded no device "
-            "events: device busy share not measured")
-        return
-    busy, end, by_name = 0.0, -math.inf, {}
-    for start, stop, name in spans:
-        busy += max(0.0, stop - max(start, end))
-        end = max(end, stop)
-        total, count = by_name.get(name, (0.0, 0))
-        by_name[name] = (total + stop - start, count + 1)
-    say(f"[profile] warm run_eval {wall:.3f}s under the profiler; device busy "
-        f"{busy / 1e3:.3f} ms = {busy / 1e4 / wall:.2f}% of wall")
-    for name, (total, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
-        say(f"[profile] {total / 1e3:9.3f} ms {count:6d}x {name[:100]}")
+    report_profile("profile", "warm run_eval", wall, prof, top=12)
 
 
 def phase_reference(torch):
@@ -400,114 +438,132 @@ TRAIN_ARGS = [
 ]
 
 
-def phase_train(torch):
-    """The training path: train_baseline.main from a scratch working
-    directory with --save_path there (384 images at batch 112: 3 steps, then
-    one evaluation of the 384-image test split), kernel K3's launch counts
-    set to 0 just before and read just after."""
+def run_train(torch, args, counted):
+    """train_baseline.main(args) from a scratch working directory with
+    --save_path there, the launch counts of ``counted`` (a kernel wrapper)
+    set to 0 just before and read just after.  Returns (summary, launches,
+    wall seconds)."""
     from vit_reranking_tpu_torch.cli import train_baseline
+
+    with scratch_cwd() as work:
+        counted.fwd_launches = counted.bwd_launches = 0
+        t0 = time.perf_counter()
+        summary = train_baseline.main(args + ["--save_path", os.path.join(work, "runs")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return summary, {"fwd": counted.fwd_launches, "bwd": counted.bwd_launches}, wall
+
+
+def report_train(tag, summary, wall, kernel, launches, expected, steps=3):
+    """Print a training run's losses, step seconds (CUDA events), in-train
+    metrics and launch counts; fail on non-finite values or when
+    ``expected`` (the launch check) is false."""
+    losses, secs = summary["step_loss"], summary["step_seconds"]
+    say(f"[{tag}] step losses " + " ".join(f"{x:.6f}" for x in losses))
+    say(f"[{tag}] step seconds (CUDA events): first {secs[0]:.4f}, warm "
+        + " ".join(f"{x:.4f}" for x in secs[1:]))
+    ev = summary["eval"][-1]
+    say(f"[{tag}] in-train eval R@1={ev['r1']:.4f} RP={ev['rp']:.4f} MAP@R={ev['mapr']:.4f}; "
+        f"train_baseline.main {wall:.3f}s; {kernel} launches {launches}")
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{tag} losses {losses}")
+    if not expected:
+        raise AssertionError(f"{kernel} was not launched as the {tag} path needs: {launches}")
+    for m, val in ev.items():
+        if not (math.isfinite(val) and 0.0 <= val <= 100.0):
+            raise AssertionError(f"{tag} in-train metric {m} = {val}")
+
+
+def phase_train(torch):
+    """The training path: 384 images at batch 112, 3 steps, then one
+    evaluation of the 384-image test split, kernel K3's launches counted."""
     from vit_reranking_tpu_torch.ops.attention import kv_resident_attention
 
-    cwd = os.getcwd()
-    with tempfile.TemporaryDirectory() as work:
-        os.chdir(work)
-        try:
-            kv_resident_attention.fwd_launches = 0
-            kv_resident_attention.bwd_launches = 0
-            t0 = time.perf_counter()
-            summary = train_baseline.main(TRAIN_ARGS + ["--save_path", os.path.join(work, "runs")])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = {"fwd": kv_resident_attention.fwd_launches,
-                        "bwd": kv_resident_attention.bwd_launches}
-        finally:
-            os.chdir(cwd)
-    losses, secs = summary["step_loss"], summary["step_seconds"]
+    summary, launches, wall = run_train(torch, TRAIN_ARGS, kv_resident_attention)
     n_eval = -(-8 * 48 // 112)
-    say("[train] step losses " + " ".join(f"{x:.6f}" for x in losses))
-    say(f"[train] step seconds: first {secs[0]:.4f}, warm "
-        + " ".join(f"{x:.4f}" for x in secs[1:]))
-    say(f"[train] in-train eval R@1={summary['eval'][-1]['r1']:.4f} "
-        f"RP={summary['eval'][-1]['rp']:.4f} MAP@R={summary['eval'][-1]['mapr']:.4f}; "
-        f"train_baseline.main {wall:.3f}s; K3 launches {launches}")
-    if len(losses) != 3 or not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"train losses {losses}")
-    if not (launches["fwd"] >= 3 + n_eval and launches["bwd"] == 3):
-        raise AssertionError(f"K3 was not launched as the training path needs: {launches}")
-    for m, val in summary["eval"][-1].items():
-        if not (math.isfinite(val) and 0.0 <= val <= 100.0):
-            raise AssertionError(f"in-train metric {m} = {val}")
+    report_train("train", summary, wall, "K3", launches,
+                 launches["fwd"] >= 3 + n_eval and launches["bwd"] == 3)
     return launches
 
 
-def phase_train_profile(torch):
-    """Warm train steps of the same configuration: K3 against the
-    materialising attention (models/cvt.py USE_KV_RESIDENT_ATTENTION off) in
-    turns on, off, off, on, each for 3 timed steps with its peak memory;
-    then one step under torch.profiler: the device's busy share and the
-    kernels that take it."""
-    from torch.autograd import DeviceType
+@contextlib.contextmanager
+def switched(settings):
+    """Set each ``(module, name, value)`` of ``settings`` for the block and
+    restore the old values after it."""
+    saved = [(m, n, getattr(m, n)) for m, n, _ in settings]
+    for m, n, val in settings:
+        setattr(m, n, val)
+    try:
+        yield
+    finally:
+        for m, n, val in saved:
+            setattr(m, n, val)
+
+
+def ab_and_profile(torch, tag, args, variants, order, profiled, port_kernels):
+    """Warm train steps at ``args``'s configuration under each of
+    ``variants`` (label -> module settings, see :func:`switched`) in the
+    turns of ``order``, each turn 3 timed steps after a warm-up, with its
+    median and peak memory; then one step of each label in ``profiled``
+    under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     from vit_reranking_tpu_torch.cli.common import build_training, run_train_step
     from vit_reranking_tpu_torch.core.config import from_args
     from vit_reranking_tpu_torch.data.loader import build_dataset
-    from vit_reranking_tpu_torch.models import cvt
 
-    opt = from_args(TRAIN_ARGS)
+    opt = from_args(args)
     loaders, _ = build_dataset(opt)
     lab, images, _ = next(iter(loaders["training"]))
     _, _, state = build_training(opt, len(loaders["training"]), torch.device("cuda"))
     gen = torch.Generator(device="cuda").manual_seed(1)
 
-    def timed_steps(use_kernel, n=3):
-        cvt.USE_KV_RESIDENT_ATTENTION = use_kernel
-        try:
-            run_train_step(state, lab, images, gen, "cuda")  # warm-up
+    def step():
+        return run_train_step(state, lab, images, gen, "cuda")
+
+    def timed_steps(label, n=3):
+        with switched(variants[label]):
+            step()  # warm-up
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             times = []
             for _ in range(n):
                 t0 = time.perf_counter()
-                float(run_train_step(state, lab, images, gen, "cuda")["loss"])
+                float(step()["loss"])
                 times.append(time.perf_counter() - t0)
             return sorted(times)[n // 2], torch.cuda.max_memory_allocated() / 2**30
-        finally:
-            cvt.USE_KV_RESIDENT_ATTENTION = True
 
-    ab = [(use, *timed_steps(use)) for use in (True, False, False, True)]
-    say("[train-ab] warm step median s / peak GiB, K3 on (kv-resident) vs off "
-        "(materialising): " + ", ".join(
-            f"{'on' if use else 'off'} {t:.4f} s {m:.2f} GiB" for use, t, m in ab))
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_train_step(state, lab, images, gen, "cuda")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    if not spans:
-        say(f"[train-profile] step {wall:.4f}s; the profiler recorded no device events: "
-            "device busy share not measured")
-        return
-    busy, end, by_name = 0.0, -math.inf, {}
-    for start, stop, name in spans:
-        busy += max(0.0, stop - max(start, end))
-        end = max(end, stop)
-        total, count = by_name.get(name, (0.0, 0))
-        by_name[name] = (total + stop - start, count + 1)
-    k3 = sum(t for n, (t, _) in by_name.items() if "dkdv_kernel" in n or "dq_kernel" in n
-             or "fwd_kernel" in n or "delta_kernel" in n)
-    say(f"[train-profile] one warm step {wall:.4f}s under the profiler; device busy "
-        f"{busy / 1e3:.3f} ms = {busy / 1e4 / wall:.2f}% of wall; K3 kernels {k3 / 1e3:.3f} ms")
-    for name, (total, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
-        say(f"[train-profile] {total / 1e3:9.3f} ms {count:6d}x {name[:100]}")
+    ab = [(label, *timed_steps(label)) for label in order]
+    say(f"[{tag}-ab] warm step median s / peak GiB: "
+        + ", ".join(f"{label} {t:.4f} s {m:.2f} GiB" for label, t, m in ab))
+    for label in profiled:
+        with switched(variants[label]):
+            step()  # warm-up
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        report_profile(f"{tag}-profile", f"one warm step, {label},", wall, prof, top=15,
+                       port_kernels=port_kernels)
 
 
-def phase_train_reference(torch):
-    """One train step on the card against the same step on the CPU: the
-    same full CvT-13 weights (drop-path 0), 4 images at 224 px, fixed
+def phase_train_profile(torch):
+    """K3 against the materialising attention (models/cvt.py
+    USE_KV_RESIDENT_ATTENTION off), and a profiled step."""
+    from vit_reranking_tpu_torch.models import cvt
+
+    switch = "USE_KV_RESIDENT_ATTENTION"
+    ab_and_profile(torch, "train", TRAIN_ARGS,
+                   {"K3 on": [(cvt, switch, True)], "off (materialising)": [(cvt, switch, False)]},
+                   ("K3 on", "off (materialising)", "off (materialising)", "K3 on"), ("K3 on",),
+                   ("dkdv_kernel", "dq_kernel", "fwd_kernel", "delta_kernel"))
+
+
+def card_vs_cpu_step(torch, tag, base):
+    """One train step of ``base`` on the card against the same step on the
+    CPU: a copy of the same weights on each, 4 images at 224 px, fixed
     triplets, Adam with two groups; loss and gradient norm compared."""
     import copy
     from types import SimpleNamespace
@@ -515,7 +571,6 @@ def phase_train_reference(torch):
     from vit_reranking_tpu_torch.engine.train import init_train_state, make_optimizer, train_step
     from vit_reranking_tpu_torch.losses.margin import MarginLoss
     from vit_reranking_tpu_torch.miners.common import Triplets
-    from vit_reranking_tpu_torch.models.cvt import CvTNetwork, CvTSpec
 
     class FixedMiner:
         name = "distance"
@@ -525,8 +580,6 @@ def phase_train_reference(torch):
             return Triplets(idx(0, 1, 2, 3), idx(1, 0, 3, 2), idx(2, 3, 0, 1),
                             torch.ones(4, dtype=torch.bool, device=batch.device))
 
-    base = CvTNetwork(embed_dim=128, spec=CvTSpec(drop_path_rate=(0.0, 0.0, 0.0)),
-                      generator=torch.Generator().manual_seed(0))
     x = torch.randn(4, 3, 224, 224, generator=torch.Generator().manual_seed(3))
     labels = torch.tensor([0, 0, 1, 1])
     opt = SimpleNamespace(n_classes=2)
@@ -542,11 +595,247 @@ def phase_train_reference(torch):
 
     card, cpu = one_step("cuda"), one_step("cpu")
     rel = {k: abs(card[k] - cpu[k]) / abs(cpu[k]) for k in ("loss", "grad_l2")}
-    say(f"[train-reference] card {card} cpu {cpu} rel_err "
+    say(f"[{tag}] card {card} cpu {cpu} rel_err "
         + " ".join(f"{k}={v:.3e}" for k, v in rel.items()))
     bad = {k: v for k, v in rel.items() if not v <= STEP_RTOL}
     if bad or not all(math.isfinite(v) for v in card.values()):
         raise AssertionError(f"card and CPU train steps disagree beyond {STEP_RTOL}: {bad}")
+
+
+def phase_train_reference(torch):
+    """Full CvT-13 (drop-path 0), card step against CPU step."""
+    from vit_reranking_tpu_torch.models.cvt import CvTNetwork, CvTSpec
+
+    base = CvTNetwork(embed_dim=128, spec=CvTSpec(drop_path_rate=(0.0, 0.0, 0.0)),
+                      generator=torch.Generator().manual_seed(0))
+    card_vs_cpu_step(torch, "train-reference", base)
+
+
+def phase_k3_head_dims(torch):
+    """K3's gate after its repair: at D = 192 the kernel runs and matches
+    its plain version; at D = 256, which K3 is not built for, cvt_attention
+    returns None and the caller materialises."""
+    from vit_reranking_tpu_torch.ops.attention import (
+        cvt_attention, kv_resident_attention, kv_resident_attention_plain,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for D in (192, 256):
+        q, k, v, do = (torch.randn(1, 2, 784, D, device="cuda", generator=gen) for _ in range(4))
+        scale = D ** -0.5
+        before = kv_resident_attention.fwd_launches
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = cvt_attention(*leaves, scale)
+        routed = out is not None
+        if not routed:
+            out = kv_resident_attention_plain(*leaves, scale)
+        grads = torch.autograd.grad(out, leaves, do)
+        ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        ref = kv_resident_attention_plain(*ref_leaves, scale)
+        ref_grads = torch.autograd.grad(ref, ref_leaves, do)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        rel = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(grads, ref_grads))
+        launched = kv_resident_attention.fwd_launches - before
+        say(f"[K3 D={D}] B*H=2 T=Tkv=784: {'kernel' if routed else 'gate returns None'} "
+            f"(launches {launched}), max_abs_err={err:.3e} grad rel_err={rel:.3e}")
+        if routed != (D == 192) or launched != int(routed):
+            raise AssertionError(f"K3 gate at D={D}: routed={routed}, launches {launched}")
+        if not (err <= K3_FWD_TOL and rel <= K3_GRAD_RTOL):
+            raise AssertionError(f"K3 at D={D} disagrees with its plain version")
+
+
+def phase_k4(torch):
+    """Kernels K4a (packed contract) and K4b (batched contract), forward and
+    backward, against their plain versions at Swin-T's stage-0 and stage-2
+    shapes at batch 112 (T=49, D=32; the real shifted-window masks), with
+    dbias/dadd checked for the same bits on a second run, and the yardstick
+    of scaled_dot_product_attention over the same windows with the bias and
+    mask expanded to a float attn_mask."""
+    import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
+
+    from vit_reranking_tpu_torch.models.swin import _shift_attn_mask
+    from vit_reranking_tpu_torch.ops import swin_attention as swa
+
+    T, D, B = 49, 32, 112
+    scale = D ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    entries = {}
+    for stage, nW, H, res in (("stage 0", 64, 3, 56), ("stage 2", 4, 12, 14)):
+        G = H * B
+        q, k, v, do = (torch.randn(G, nW, T, D, device="cuda", generator=gen) for _ in range(4))
+        bias = torch.randn(H, T, T, device="cuda", generator=gen)
+        mask = torch.from_numpy(_shift_attn_mask(res, res, 7, 3)).cuda()
+        P = swa._pick_pack_packed(nW, T)
+        nblk, PT = nW // P, P * T
+        add = swa._packed_add_term(bias, mask, P, nblk).contiguous()
+        pshape = (G, nblk, PT, D)
+
+        # the yardstick: one library call over the G * nW windows
+        q4, k4, v4 = (t.view(G * nW, 1, T, D).clone().requires_grad_() for t in (q, k, v))
+        full_mask = (bias.repeat_interleave(B, dim=0)[:, None] + mask[None]).view(G * nW, 1, T, T)
+        backend = sdpa_backend(q4[:8], k4[:8], v4[:8], attn_mask=full_mask[:8], scale=scale)
+        with sdpa_kernel([backend]):
+            o4 = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=full_mask, scale=scale)
+            sdpa_fwd = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4.detach(), k4.detach(), v4.detach(), attn_mask=full_mask, scale=scale), reps=5)
+            sdpa_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
+                o4, (q4, k4, v4), do.view(G * nW, 1, T, D), retain_graph=True), reps=5)
+            sdpa_fb = cuda_ms(torch, lambda: torch.autograd.grad(
+                F.scaled_dot_product_attention(q4, k4, v4, attn_mask=full_mask, scale=scale),
+                (q4, k4, v4), do.view(G * nW, 1, T, D)), reps=5)
+        del q4, k4, v4, o4, full_mask
+        fwd_bwd = {}
+
+        qkv_bytes = q.numel() * 4
+        ops_fwd = 4 * T * T * D * G * nW
+        ops_bwd = 10 * T * T * D * G * nW
+        for name, fn, plain, operands in (
+            ("K4a packed", lambda *a: swa._packed_attention(*a, scale, B, T),
+             lambda *a: swa.packed_attention_plain(*a, scale, B),
+             (q.view(pshape), k.view(pshape), v.view(pshape), add)),
+            ("K4b batched", lambda *a: swa.swin_window_attention(*a, mask, scale),
+             lambda *a: swa.swin_window_attention_plain(*a, mask, scale), (q, k, v, bias)),
+        ):
+            gout = do.view(operands[0].shape)
+            leaves = [t.clone().requires_grad_() for t in operands]
+            out = fn(*leaves)
+            grads = torch.autograd.grad(out, leaves, gout, retain_graph=True)
+            again = torch.autograd.grad(out, leaves, gout, retain_graph=True)
+            ref_leaves = [t.clone().requires_grad_() for t in operands]
+            ref = plain(*ref_leaves)
+            ref_grads = torch.autograd.grad(ref, ref_leaves, gout, retain_graph=True)
+            torch.cuda.synchronize()
+            fwd_err = float((out - ref).abs().max())
+            rel = {n: float((a - b).abs().max() / b.abs().max())
+                   for n, a, b in zip(("dq", "dk", "dv", "dadd" if "packed" in name else "dbias"),
+                                      grads, ref_grads)}
+            bwd_err = max(float((a - b).abs().max()) for a, b in zip(grads, ref_grads))
+            same_bits = torch.equal(grads[3], again[3])
+            with torch.no_grad():
+                ms = cuda_ms(torch, lambda: fn(*operands), reps=10)
+                plain_ms = cuda_ms(torch, lambda: plain(*operands), reps=3)
+            bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(out, leaves, gout,
+                                                                retain_graph=True), reps=10)
+            bwd_plain_ms = cuda_ms(torch, lambda: torch.autograd.grad(ref, ref_leaves, gout,
+                                                                      retain_graph=True), reps=3)
+            # the packed contract's function needs only add's diagonal (T, T)
+            # blocks (the rest is -1e9); its gradient is written in full
+            add_bytes = (H * nW * T * T * 4 if "packed" in name
+                         else (bias.numel() + mask.numel()) * 4)
+            fwd_bound = bound(4 * qkv_bytes + add_bytes, ops_fwd)
+            bwd_bound = bound(7 * qkv_bytes + add_bytes + operands[3].numel() * 4, ops_bwd)
+            del out, ref, grads, again, ref_grads, leaves, ref_leaves
+            say(f"[{name} fwd, {stage}: G={G} nW={nW} T={T} D={D}] max_abs_err={fwd_err:.3e} "
+                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={sdpa_fwd:.4f} "
+                f"bound_ms={fwd_bound[0]:.5f} ({fwd_bound[1]})")
+            say(f"[{name} bwd, {stage}: G={G} nW={nW} T={T} D={D}] max_abs_err={bwd_err:.3e} "
+                "rel_err " + " ".join(f"{n}={e:.3e}" for n, e in rel.items())
+                + f" same_bits_on_rerun={same_bits} kernel_ms={bwd_ms:.4f} "
+                f"plain_ms={bwd_plain_ms:.4f} sdpa_bwd_ms={sdpa_bwd:.4f} "
+                f"bound_ms={bwd_bound[0]:.5f} ({bwd_bound[1]})")
+            if not fwd_err <= K4_FWD_TOL:
+                raise AssertionError(f"{name} {stage} forward disagrees: {fwd_err}")
+            bad = {n: e for n, e in rel.items() if not e <= K4_GRAD_RTOL}
+            if bad or not same_bits:
+                raise AssertionError(f"{name} {stage} backward: {bad}, same bits {same_bits}")
+            fwd_bwd[name] = ms + bwd_ms
+            if stage == "stage 0":
+                entries[name] = {
+                    "fwd": dict(max_abs_err=fwd_err, ms=ms, plain_ms=plain_ms,
+                                bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
+                                library_ms=sdpa_fwd),
+                    "bwd": dict(max_abs_err=bwd_err, ms=bwd_ms, plain_ms=bwd_plain_ms,
+                                bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+                                library_ms=sdpa_bwd),
+                }
+        say(f"[K4 {stage}] sdpa backend in f32 with a float attn_mask: {backend.name}; "
+            f"sdpa fwd+bwd {sdpa_fb:.4f} ms, "
+            + ", ".join(f"{n} fwd+bwd {t:.4f} ms" for n, t in fwd_bwd.items()))
+        del q, k, v, do, add
+        torch.cuda.empty_cache()
+    return entries["K4a packed"], entries["K4b batched"]
+
+
+SWIN_TRAIN_ARGS = [
+    "--dataset", "synthetic", "--arch", "swin_normalize", "--loss", "margin",
+    "--batch_mining", "distance", "--bs", "112", "--samples_per_class", "2",
+    "--n_epochs", "1", "--evalevery", "1", "--synthetic_classes", "8",
+    "--synthetic_size", "224", "--embed_dim", "128", "--seed", "0", "--kernels", "8",
+    "--device", "cuda",
+]
+
+
+def run_swin_train(torch, per_class, packed):
+    """train_baseline --arch swin_normalize with the window kernels on
+    (``packed`` picks the variant), that variant's launches counted."""
+    from vit_reranking_tpu_torch.models import swin
+    from vit_reranking_tpu_torch.ops import swin_attention as swa
+
+    fn = swa.swin_window_attention_packed if packed else swa.swin_window_attention
+    with switched([(swin, "USE_SWIN_WINDOW_KERNEL", True), (swa, "SWIN_KERNEL_PACKED", packed)]):
+        return run_train(torch, SWIN_TRAIN_ARGS + ["--synthetic_per_class", str(per_class)], fn)
+
+
+def phase_swin_train(torch):
+    """The Swin-T training path: 384 images at batch 112, 3 steps and the
+    in-train evaluation of the 384-image test split, packed kernels (K4a).
+    Stages 0-2 run the kernel, 2 + 2 + 6 = 10 blocks; stage 3 (one window
+    an image) materialises, as in the JAX package."""
+    summary, launches, wall = run_swin_train(torch, per_class=48, packed=True)
+    n_eval = -(-8 * 48 // 112)
+    say(f"[swin-train] expected K4a launches: fwd {10 * (3 + n_eval)}, bwd 30")
+    report_train("swin-train", summary, wall, "K4a", launches,
+                 launches["fwd"] == 10 * (3 + n_eval) and launches["bwd"] == 30)
+    return launches
+
+
+def phase_swin_batched(torch):
+    """The same path with the batched variant (K4b): 112 images, one step
+    and one evaluation batch."""
+    summary, launches, wall = run_swin_train(torch, per_class=14, packed=False)
+    say("[swin-train-batched] expected K4b launches: fwd 20, bwd 10")
+    report_train("swin-train-batched", summary, wall, "K4b", launches,
+                 launches["fwd"] == 20 and launches["bwd"] == 10, steps=1)
+    return launches
+
+
+def phase_swin_ab(torch):
+    """K4a (packed) and K4b (batched) against the materialising window
+    attention (models/swin.py USE_SWIN_WINDOW_KERNEL off) at batch 112, and
+    a profiled step of each variant: K4a and K4b launch the same window
+    core, so their difference is the packed contract's additive term and
+    its gradient."""
+    from vit_reranking_tpu_torch.models import swin
+    from vit_reranking_tpu_torch.ops import swin_attention as swa
+
+    on = (swin, "USE_SWIN_WINDOW_KERNEL", True)
+    variants = {"K4a packed": [on, (swa, "SWIN_KERNEL_PACKED", True)],
+                "K4b batched": [on, (swa, "SWIN_KERNEL_PACKED", False)],
+                "off (materialising)": [(swin, "USE_SWIN_WINDOW_KERNEL", False)]}
+    ab_and_profile(torch, "swin-train", SWIN_TRAIN_ARGS + ["--synthetic_per_class", "14"],
+                   variants, ("K4a packed", "K4b batched", "off (materialising)",
+                              "off (materialising)", "K4b batched", "K4a packed"),
+                   ("K4a packed", "K4b batched"),
+                   ("fwd_kernel", "bwd_kernel", "reduce_add_kernel", "reduce_bias_kernel"))
+
+
+def phase_swin_reference(torch):
+    """Full Swin-T (drop-path 0) with K4a on, card step against CPU step;
+    the card step runs K4a in its 10 blocks each way."""
+    from vit_reranking_tpu_torch.models import swin
+    from vit_reranking_tpu_torch.ops import swin_attention as swa
+
+    base = swin.SwinNetwork(embed_dim=128, drop_path_rate=0.0,
+                            generator=torch.Generator().manual_seed(0))
+    fn = swa.swin_window_attention_packed
+    fn.fwd_launches = fn.bwd_launches = 0
+    with switched([(swin, "USE_SWIN_WINDOW_KERNEL", True), (swa, "SWIN_KERNEL_PACKED", True)]):
+        card_vs_cpu_step(torch, "swin-train-reference", base)
+    if (fn.fwd_launches, fn.bwd_launches) != (10, 10):
+        raise AssertionError(f"the card step did not run K4a in its 10 blocks: "
+                             f"{(fn.fwd_launches, fn.bwd_launches)}")
 
 
 def main():
@@ -572,6 +861,12 @@ def main():
     k3_launches = phase_train(torch)
     phase_train_profile(torch)
     phase_train_reference(torch)
+    phase_k3_head_dims(torch)
+    k4a, k4b = phase_k4(torch)
+    k4a_launches = phase_swin_train(torch)
+    k4b_launches = phase_swin_batched(torch)
+    phase_swin_ab(torch)
+    phase_swin_reference(torch)
     kernels = [
         dict(name="sinkhorn_score", route="cuda",
              source="vit_reranking_tpu_torch/csrc/sinkhorn_score.cu",
@@ -589,6 +884,22 @@ def main():
              source="vit_reranking_tpu_torch/csrc/kv_attention.cu",
              replaces="vit_reranking_tpu/ops/attention_pallas.py:66",
              launches=k3_launches["bwd"], **k3["bwd"]),
+        dict(name="swin_attention_packed_fwd", route="cuda",
+             source="vit_reranking_tpu_torch/csrc/swin_attention.cu",
+             replaces="vit_reranking_tpu/ops/swin_attention_pallas.py:218",
+             launches=k4a_launches["fwd"], **k4a["fwd"]),
+        dict(name="swin_attention_packed_bwd", route="cuda",
+             source="vit_reranking_tpu_torch/csrc/swin_attention.cu",
+             replaces="vit_reranking_tpu/ops/swin_attention_pallas.py:234",
+             launches=k4a_launches["bwd"], **k4a["bwd"]),
+        dict(name="swin_window_attention_fwd", route="cuda",
+             source="vit_reranking_tpu_torch/csrc/swin_attention.cu",
+             replaces="vit_reranking_tpu/ops/swin_attention_pallas.py:77",
+             launches=k4b_launches["fwd"], **k4b["fwd"]),
+        dict(name="swin_window_attention_bwd", route="cuda",
+             source="vit_reranking_tpu_torch/csrc/swin_attention.cu",
+             replaces="vit_reranking_tpu/ops/swin_attention_pallas.py:88",
+             launches=k4b_launches["bwd"], **k4b["bwd"]),
     ]
     say(f"[done] {time.perf_counter() - t_start:.3f}s in all")
     say(json.dumps({"kernels": kernels}))

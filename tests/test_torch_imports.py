@@ -39,7 +39,8 @@ def test_port_files_found():
     assert len(FILES) > 20
     names = {str(p.relative_to(ROOT)) for p in FILES}
     for module in ("ops/attention", "engine/train", "losses/margin", "miners/distance",
-                   "data/samplers", "core/checkpoint", "core/logger", "cli/train_baseline"):
+                   "data/samplers", "core/checkpoint", "core/logger", "cli/train_baseline",
+                   "models/swin", "ops/swin_attention"):
         assert f"vit_reranking_tpu_torch/{module}.py" in names
 
 

@@ -9,7 +9,9 @@ matches its plain version to 1e-5 on O(1) scores (mat-vec sums in another
 order); kernel K2 is bitwise equal to its plain version; kernel K3's forward
 matches its plain version to 1e-5 and its dq, dk, dv match autograd through
 the plain version to 1e-4 of their largest magnitude (online softmax and
-tiled sums in another order).
+tiled sums in another order).  Kernels K4a and K4b (Swin window attention)
+hold the same bounds against their plain versions, dbias/dadd included, and
+give bitwise the same dbias/dadd from run to run (fixed-order sums).
 """
 
 import numpy as np
@@ -18,8 +20,10 @@ import torch
 
 from vit_reranking_tpu_torch.ops import native
 from vit_reranking_tpu_torch.ops.attention import (
-    kv_resident_attention, kv_resident_attention_plain,
+    cvt_attention, kv_resident_attention, kv_resident_attention_plain,
 )
+from vit_reranking_tpu_torch.models.swin import _shift_attn_mask
+from vit_reranking_tpu_torch.ops import swin_attention as swa
 from vit_reranking_tpu_torch.ops.rerank import sinkhorn_scores, sinkhorn_scores_plain
 from vit_reranking_tpu_torch.ops.rollout import filter_threshold, filter_threshold_plain
 
@@ -169,3 +173,103 @@ def test_kv_attention_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.zeros(1, 16, 64, device=cuda, dtype=torch.float64)
     with pytest.raises(ValueError):
         kv_resident_attention(q, q, q, 0.1)  # float64
+
+
+@pytest.mark.parametrize("D", [192, 256])
+def test_cvt_attention_gate_admits_only_what_k3_takes(cuda, D):
+    """The gate's repair: at D = 192 the kernel runs; at D = 256, which K3
+    is not built for, the gate returns None and the caller materialises.
+    Neither raises, and both match the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v, do = (torch.randn(1, 2, 784, D, device=cuda, generator=gen) for _ in range(4))
+    scale = D ** -0.5
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    before = kv_resident_attention.fwd_launches
+    out = cvt_attention(qg, kg, vg, scale)
+    assert (out is None) == (D == 256)
+    assert kv_resident_attention.fwd_launches == before + (D != 256)
+    if out is None:
+        out = kv_resident_attention_plain(qg, kg, vg, scale)
+    grads = torch.autograd.grad(out, (qg, kg, vg), do)
+    rq, rk, rv = (t.clone().requires_grad_() for t in (q, k, v))
+    ref = kv_resident_attention_plain(rq, rk, rv, scale)
+    ref_grads = torch.autograd.grad(ref, (rq, rk, rv), do)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= 1e-5
+    for a, b in zip(grads, ref_grads):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+def _swin_inputs(device, G, nW, T, D, H, with_mask, seed=9):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, do = (torch.randn(G, nW, T, D, device=device, generator=gen) for _ in range(4))
+    bias = torch.randn(H, T, T, device=device, generator=gen)
+    mask = None
+    if with_mask:
+        region = torch.randint(0, 2, (nW, T, 1), device=device, generator=gen)
+        mask = torch.where(region == region.transpose(1, 2), 0.0, -100.0)
+    return q, k, v, do, bias, mask
+
+
+def _swin_run(fn, q, k, v, do, bias, mask, scale):
+    args = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+    out = fn(*args, mask, scale)
+    return out, torch.autograd.grad(out, args, do)
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["K4a-packed", "K4b-batched"])
+@pytest.mark.parametrize(
+    "G,nW,T,D,H,with_mask",
+    [(336, 64, 49, 32, 3, True), (24, 4, 16, 8, 3, True), (12, 4, 49, 32, 4, False)],
+    ids=["stage0", "ragged-T16-D8", "T49-nomask"],
+)
+def test_swin_kernels_match_plain_on_card(cuda, packed, G, nW, T, D, H, with_mask):
+    q, k, v, do, bias, mask = _swin_inputs(cuda, G, nW, T, D, H, with_mask)
+    if mask is not None and T == 49:  # Swin-T's stage-0 shifted-window mask
+        mask = torch.from_numpy(_shift_attn_mask(56, 56, 7, 3)).to(cuda)
+    fn = swa.swin_window_attention_packed if packed else swa.swin_window_attention
+    scale = D ** -0.5
+    before = (fn.fwd_launches, fn.bwd_launches)
+    out, grads = _swin_run(fn, q, k, v, do, bias, mask, scale)
+    ref, ref_grads = _swin_run(swa.swin_window_attention_plain, q, k, v, do, bias, mask, scale)
+    torch.cuda.synchronize()
+    assert (fn.fwd_launches, fn.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert float((out - ref).abs().max()) <= 1e-5
+    for a, b, name in zip(grads, ref_grads, ("dq", "dk", "dv", "dbias")):
+        assert torch.isfinite(a).all(), name
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()), name
+    _, again = _swin_run(fn, q, k, v, do, bias, mask, scale)
+    assert torch.equal(again[3], grads[3])  # dbias the same bits from run to run
+
+
+def test_packed_kernel_dadd_is_bitwise_repeatable_and_block_diagonal(cuda):
+    q, k, v, do, bias, mask = _swin_inputs(cuda, 24, 16, 49, 32, 3, True)
+    P = swa._pick_pack_packed(16, 49)
+    shape = (24, 16 // P, P * 49, 32)
+    add = swa._packed_add_term(bias, mask, P, 16 // P).contiguous()
+
+    def dadd():
+        a = add.clone().requires_grad_()
+        out = swa._packed_attention(q.reshape(shape), k.reshape(shape), v.reshape(shape), a,
+                                    0.2, 8, 49)
+        return torch.autograd.grad(out, a, do.reshape(shape))[0]
+
+    first, second = dadd(), dadd()
+    a = add.clone().requires_grad_()
+    ref = torch.autograd.grad(swa.packed_attention_plain(
+        q.reshape(shape), k.reshape(shape), v.reshape(shape), a, 0.2, 8), a, do.reshape(shape))[0]
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert float((first - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    off = torch.ones(P, P, device=cuda) - torch.eye(P, device=cuda)
+    off = off.repeat_interleave(49, 0).repeat_interleave(49, 1).bool()
+    assert torch.count_nonzero(first[:, :, off]) == 0
+
+
+def test_swin_kernels_refuse_what_they_do_not_take(cuda):
+    q = torch.zeros(2, 4, 80, 8, device=cuda)  # T 80 > 64
+    with pytest.raises(ValueError):
+        swa.swin_window_attention(q, q, q, torch.zeros(1, 80, 80, device=cuda), None, 0.1)
+    q = torch.zeros(2, 4, 16, 12, device=cuda)  # D 12
+    with pytest.raises(ValueError):
+        swa.swin_window_attention(q, q, q, torch.zeros(1, 16, 16, device=cuda), None, 0.1)

@@ -3,8 +3,11 @@
 //
 // Replaces the TPU kernels vit_reranking_tpu/ops/attention_pallas.py::
 // _fwd_kernel (:48, launched by _fwd :131) and _bwd_kernel (:66, launched by
-// _bwd :152).  q (BH, T, D), k and v (BH, Tkv, D), all row-major f32, D 64
-// or 128.  CvT-13 stage 0 at 224 px: T = 3136, Tkv = 784, D = 64.
+// _bwd :152).  q (BH, T, D), k and v (BH, Tkv, D), all row-major f32, D 64,
+// 128 or 192.  CvT-13 stage 0 at 224 px: T = 3136, Tkv = 784, D = 64.  The
+// backward's dK/dV block holds six 64-row tiles in shared memory, 226 KB at
+// D = 192; D = 256 would need 290 KB, past a block's 227 KB, so callers
+// materialise the attention there (ops/attention.py::cvt_attention).
 //
 // What changes from the TPU design.  The TPU kernel keeps the whole k and v
 // of a head in VMEM (at stage 0 in f32: 2 x 200 KB) and computes one plain
@@ -413,6 +416,7 @@ extern "C" int kv_attention_fwd(const float* q, const float* k, const float* v, 
   switch (D) {
     case 64: return fwd<64>(q, k, v, o, lse, BH, T, Tkv, scale, st);
     case 128: return fwd<128>(q, k, v, o, lse, BH, T, Tkv, scale, st);
+    case 192: return fwd<192>(q, k, v, o, lse, BH, T, Tkv, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -428,6 +432,7 @@ extern "C" int kv_attention_bwd(const float* q, const float* k, const float* v, 
   switch (D) {
     case 64: return bwd<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, BH, T, Tkv, scale, st);
     case 128: return bwd<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, BH, T, Tkv, scale, st);
+    case 192: return bwd<192>(q, k, v, o, dout, lse, delta, dq, dk, dv, BH, T, Tkv, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -98,8 +98,8 @@ def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
         group["lr"] = state.schedule(group["base_lr"], state.step)
     grads = [p.grad.float() for p in model.parameters()]
     with torch.no_grad():
-        grad_l2 = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-        grad_max = torch.max(torch.stack([torch.max(torch.abs(g)) for g in grads]))
+        grad_l2 = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads, 2)))
+        grad_max = torch.max(torch.stack(torch._foreach_norm(grads, float("inf"))))
     optimizer.step()
     state.step += 1
     return {"loss": loss.detach(), "grad_l2": grad_l2, "grad_max": grad_max}

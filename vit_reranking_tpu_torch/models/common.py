@@ -13,7 +13,7 @@ module's own (``.train()`` / ``.eval()``).
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn as nn
@@ -44,17 +44,19 @@ class LayerNormFp32(nn.Module):
 
 
 class Mlp(nn.Module):
-    """Two-layer QuickGELU MLP (reference cvt.py:58-79)."""
+    """Two-layer MLP (reference cvt.py:58-79), QuickGELU unless ``act``
+    says otherwise (Swin passes the exact erf GELU)."""
 
     def __init__(self, in_features: int, hidden_features: int, out_features: int,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, act: Callable[[torch.Tensor], torch.Tensor] = quick_gelu):
         super().__init__()
         self.fc1 = nn.Linear(in_features, hidden_features)
         self.fc2 = nn.Linear(hidden_features, out_features)
         self.drop = nn.Dropout(dropout)
+        self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.drop(self.fc2(self.drop(quick_gelu(self.fc1(x)))))
+        return self.drop(self.fc2(self.drop(self.act(self.fc1(x)))))
 
 
 class BatchNorm2d(nn.BatchNorm2d):

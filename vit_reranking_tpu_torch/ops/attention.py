@@ -24,6 +24,11 @@ from . import native
 # same stages; it is not tuned for the H100.
 KV_RESIDENT_MIN_SCORES = 500_000
 
+# Head dims K3 is built for.  D = 256 does not fit the backward's shared
+# memory (csrc/kv_attention.cu); cvt_attention returns None beyond 192, the
+# one place where its routing differs from the JAX package's.
+KERNEL_HEAD_DIMS = (64, 128, 192)
+
 
 def kv_resident_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                 scale: float) -> torch.Tensor:
@@ -47,10 +52,10 @@ def _fwd_kernel(q, k, v, scale) -> Tuple[torch.Tensor, torch.Tensor]:
     _check_cuda(q=q, k=k, v=v)
     BH, T, D = q.shape
     Tkv = k.shape[1]
-    if k.shape != (BH, Tkv, D) or v.shape != k.shape or D not in (64, 128):
+    if k.shape != (BH, Tkv, D) or v.shape != k.shape or D not in KERNEL_HEAD_DIMS:
         raise ValueError(
             f"kv_resident_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-            f"v {tuple(v.shape)}; the kernel takes D 64 or 128"
+            f"v {tuple(v.shape)}; the kernel takes D in {KERNEL_HEAD_DIMS}"
         )
     o = torch.empty_like(q)
     lse = torch.empty((BH, T), dtype=torch.float32, device=q.device)
@@ -113,7 +118,7 @@ def kv_resident_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q: (BH, T, D); k, v: (BH, Tkv, D).  On CPU tensors this is the plain
     version (:func:`kv_resident_attention_plain`), differentiated by
     autograd; on CUDA tensors the forward and the backward launch kernel K3
-    (contiguous float32, D 64 or 128, anything else raises).
+    (contiguous float32, D in ``KERNEL_HEAD_DIMS``, anything else raises).
     ``kv_resident_attention.fwd_launches`` / ``.bwd_launches`` count the
     launches.
     """
@@ -132,11 +137,12 @@ def cvt_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float) -> Optional[torch.Tensor]:
     """(B, H, T, D) wrapper used by models/cvt.py: merges batch and heads and
     runs :func:`kv_resident_attention` when the shape qualifies (the JAX
-    package's gate, attention_pallas.py:192-206), else returns None and the
-    caller materialises the probabilities."""
+    package's gate, attention_pallas.py:192-206, narrowed to the head dims
+    the kernel is built for), else returns None and the caller materialises
+    the probabilities."""
     B, H, T, D = q.shape
     Tkv = k.shape[2]
-    if T % 8 or D % 64 or Tkv < 8:
+    if T % 8 or D % 64 or Tkv < 8 or D not in KERNEL_HEAD_DIMS:
         return None
     if T * Tkv < KV_RESIDENT_MIN_SCORES:
         return None

@@ -20,7 +20,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("sinkhorn_score", "filter_threshold", "kv_attention")
+SOURCES = ("sinkhorn_score", "filter_threshold", "kv_attention", "swin_attention")
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

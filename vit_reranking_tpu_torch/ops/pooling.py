@@ -44,9 +44,16 @@ def _bilinear_ac_matrix(in_size: int, out_size: int) -> np.ndarray:
     return W
 
 
-def _separable(x: torch.Tensor, Mh: np.ndarray, Mw: np.ndarray) -> torch.Tensor:
-    Mh = torch.from_numpy(Mh).to(x.device)
-    Mw = torch.from_numpy(Mw).to(x.device)
+@functools.lru_cache(maxsize=128)
+def _on_device(matrix, in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
+    """``matrix(in_size, out_size)`` as a tensor on ``device``, copied there
+    once per (matrix, sizes, device)."""
+    return torch.from_numpy(matrix(in_size, out_size)).to(device)
+
+
+def _separable(x: torch.Tensor, matrix, h: int, w: int) -> torch.Tensor:
+    Mh = _on_device(matrix, x.shape[-2], h, x.device)
+    Mw = _on_device(matrix, x.shape[-1], w, x.device)
     x = torch.einsum("hH,...HW->...hW", Mh, x.float())
     return torch.einsum("wW,...HW->...Hw", Mw, x)
 
@@ -54,17 +61,13 @@ def _separable(x: torch.Tensor, Mh: np.ndarray, Mw: np.ndarray) -> torch.Tensor:
 def adaptive_avg_pool2d(x: torch.Tensor, output_size) -> torch.Tensor:
     """x (..., H, W) -> (..., h, w), torch.nn.AdaptiveAvgPool2d semantics."""
     h, w = (output_size, output_size) if isinstance(output_size, int) else output_size
-    return _separable(
-        x, _adaptive_pool_matrix(x.shape[-2], h), _adaptive_pool_matrix(x.shape[-1], w)
-    )
+    return _separable(x, _adaptive_pool_matrix, h, w)
 
 
 def upsample_bilinear_ac(x: torch.Tensor, output_size) -> torch.Tensor:
     """x (..., H, W) -> (..., h, w), torch Upsample(bilinear, align_corners=True)."""
     h, w = (output_size, output_size) if isinstance(output_size, int) else output_size
-    return _separable(
-        x, _bilinear_ac_matrix(x.shape[-2], h), _bilinear_ac_matrix(x.shape[-1], w)
-    )
+    return _separable(x, _bilinear_ac_matrix, h, w)
 
 
 def grid_resize_tokens(feat: torch.Tensor, grid: int) -> torch.Tensor:

@@ -9,7 +9,8 @@ so each Flax leaf maps to one parameter or buffer:
   * Dense ``kernel`` (in, out)                 -> ``weight`` (out, in)
   * LayerNorm / BatchNorm ``scale``            -> ``weight``
   * BatchNorm statistics ``mean`` / ``var``    -> ``running_mean`` / ``running_var``
-  * ``bias`` and other parameters (``cls_token``) as they are.
+  * ``bias`` and other parameters (``cls_token``, Swin's 2-D
+    ``relative_position_bias_table``) as they are.
 
 The variables arrive as nested dicts of numpy arrays (``np.asarray`` of the
 JAX leaves); nothing here imports JAX.  The same map carries a criterion's
