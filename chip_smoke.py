@@ -15,7 +15,12 @@ seeded generator:
     224 px, f32) for 3 steps at batch 112 and one in-train evaluation, with
     the window-attention kernels on: K4a (packed, the default variant)
     forward and backward; then one step and an evaluation batch with the
-    batched variant, K4b.
+    batched variant, K4b;
+  * DeiT-S evaluation: test_diml_vit (full DeiT-S with embed_dim 128 at
+    224 px, --grid_size 14 so R = 196 rerank patches, exact top-100, full
+    OT, 128 synthetic images) with the qk method, carried by K1's
+    separate-cost mode (d), and with the featvit method, carried by K1's
+    modes from S; K1 is held against its plain version at R = 196 in both.
 
 For each path it checks that its kernels carried it (launch counts set to 0
 just before and read just after), and it checks the models' forward or one
@@ -159,59 +164,114 @@ def phase_build(native):
                     say(f"[build] {name}: {line.strip()}")
 
 
-def phase_k1(torch):
-    """Kernel K1 against its plain version at the main path's shapes
-    (Q=128 queries, K=100 candidates, C=128 channels, R=49 patches)."""
-    from vit_reranking_tpu_torch.ops.rerank import (
-        rollout_marginals, sinkhorn_scores, sinkhorn_scores_plain,
-    )
+def k1_check(torch, tag, S, u, v, Q, K, **kw):
+    """Kernel K1 against its plain version on Q x K pairs (S, u, v and, for
+    mode (d), ``kw["cost"]``): max error, identical rankings, kernel and
+    plain ms, and the bound from the iterations each pair ran."""
+    from vit_reranking_tpu_torch.ops.rerank import sinkhorn_scores, sinkhorn_scores_plain
 
-    Q, K, C, R = 128, 100, 128, 49
-    gen = torch.Generator().manual_seed(0)
+    out = sinkhorn_scores(S, u, v, **kw)
+    ref, iters = sinkhorn_scores_plain(S, u, v, return_iters=True, **kw)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    same = torch.equal(torch.argsort(-out.view(Q, K), dim=1, stable=True),
+                       torch.argsort(-ref.view(Q, K), dim=1, stable=True))
+    # candidates of one query whose plain scores lie within a few f32 ulps
+    # of each other, where the strict rank check can trip on sum order alone
+    gaps = -torch.diff(torch.sort(ref.view(Q, K), dim=1, descending=True).values, dim=1)
+    near_ties = int((gaps < 1e-7).sum())
+    ms = cuda_ms(torch, lambda: sinkhorn_scores(S, u, v, **kw), reps=10)
+    plain_ms = cuda_ms(torch, lambda: sinkhorn_scores_plain(S, u, v, **kw), reps=3)
+    R = S.shape[-1]
+    RP = R + (kw.get("ot_part", 1.0) <= 0.999)
+    cost = kw.get("cost")
+    bytes_moved = (S.numel() * S.element_size() + (u.numel() + v.numel() + Q * K) * 4
+                   + (0 if cost is None else cost.numel() * cost.element_size()))
+    ops = int(iters.sum()) * 4 * RP * RP + Q * K * (3 * RP * RP + 3 * R * R)
+    bound_ms, bound_by = bound(bytes_moved, ops)
+    say(f"[{tag}] max_abs_err={err:.3e} ranks_equal={same} plain_gaps_below_1e-7={near_ties} "
+        f"mean_iters={float(iters.float().mean()):.2f} kernel_ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by})")
+    if not (err <= K1_TOL and same and math.isfinite(err)):
+        raise AssertionError(f"{tag}: kernel disagrees with its plain version")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+def k1_problem(torch, Q, K, C, R, seed):
+    """Unit patch features (Q, C, R), their exact top-K by patch-mean
+    centers, and the Q * K pairs' similarities S (Q * K, R, R) f32; also
+    the generator that drew the features, for what the caller draws next."""
+    gen = torch.Generator().manual_seed(seed)
     fb = torch.randn(Q, C, R, generator=gen)
     fb = fb / fb.norm(dim=1, keepdim=True)
     centers = fb.mean(-1)
     centers = centers / centers.norm(dim=-1, keepdim=True)
-    roll = torch.randn(Q, R, generator=gen).abs()
     sims = centers @ centers.T
     sims.fill_diagonal_(-100.0)
     top = torch.topk(sims, K, dim=1).indices
-    fb, roll, top = fb.cuda(), roll.cuda(), top.cuda()
-    S32 = torch.matmul(fb[top].transpose(-1, -2), fb[:, None]).reshape(Q * K, R, R).contiguous()
+    fb, top = fb.cuda(), top.cuda()
+    S = torch.matmul(fb[top].transpose(-1, -2), fb[:, None]).reshape(Q * K, R, R).contiguous()
+    return gen, top, S
+
+
+def phase_k1(torch):
+    """Kernel K1 against its plain version at the main path's shapes
+    (Q=128 queries, K=100 candidates, C=128 channels, R=49 patches)."""
+    from vit_reranking_tpu_torch.ops.rerank import rollout_marginals
+
+    Q, K, C, R = 128, 100, 128, 49
+    gen, top, S32 = k1_problem(torch, Q, K, C, R, seed=0)
+    roll = torch.randn(Q, R, generator=gen).abs().cuda()
     u, v = rollout_marginals(roll, roll[top])
     u, v = u.reshape(Q * K, R).contiguous(), v.reshape(Q * K, R).contiguous()
 
     # the main path's exit threshold (1e-1) stops group exit after 2
     # iterations on these inputs; 1e-3 runs the block-shared loop ~20 deep
-    entry = None
-    for mode, S, ot_part, group, thresh in (
-        ("full OT f32", S32, 1.0, 1, 1e-1),
-        ("partial OT 0.5, group exit", S32, 0.5, K, 1e-1),
-        ("partial OT 0.5, group exit, thresh 1e-3", S32, 0.5, K, 1e-3),
-        ("full OT bf16 stream", S32.to(torch.bfloat16), 1.0, 1, 1e-1),
-    ):
-        kw = dict(ot_part=ot_part, group=group, thresh=thresh)
-        out = sinkhorn_scores(S, u, v, **kw)
-        ref, iters = sinkhorn_scores_plain(S, u, v, return_iters=True, **kw)
-        torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        same = torch.equal(torch.argsort(-out.view(Q, K), dim=1, stable=True),
-                           torch.argsort(-ref.view(Q, K), dim=1, stable=True))
-        ms = cuda_ms(torch, lambda: sinkhorn_scores(S, u, v, **kw), reps=10)
-        plain_ms = cuda_ms(torch, lambda: sinkhorn_scores_plain(S, u, v, **kw), reps=3)
-        RP = R + (ot_part <= 0.999)
-        bytes_moved = S.numel() * S.element_size() + (u.numel() + v.numel() + Q * K) * 4
-        ops = int(iters.sum()) * 4 * RP * RP + Q * K * (3 * RP * RP + 3 * R * R)
-        bound_ms, bound_by = bound(bytes_moved, ops)
-        say(f"[K1 {mode}] max_abs_err={err:.3e} ranks_equal={same} "
-            f"mean_iters={float(iters.float().mean()):.2f} kernel_ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by})")
-        if not (err <= K1_TOL and same and math.isfinite(err)):
-            raise AssertionError(f"K1 {mode}: kernel disagrees with its plain version")
-        if entry is None:  # the main path's mode
-            entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, library_ms=None)
-    return entry
+    entries = [k1_check(torch, f"K1 {mode}", S, u, v, Q, K, ot_part=ot_part, group=group,
+                        thresh=thresh)
+               for mode, S, ot_part, group, thresh in (
+                   ("full OT f32", S32, 1.0, 1, 1e-1),
+                   ("partial OT 0.5, group exit", S32, 0.5, K, 1e-1),
+                   ("partial OT 0.5, group exit, thresh 1e-3", S32, 0.5, K, 1e-3),
+                   ("full OT bf16 stream", S32.to(torch.bfloat16), 1.0, 1, 1e-1))]
+    return entries[0]  # the main path's mode
+
+
+def phase_k1_large(torch):
+    """K1 at DeiT-S's rerank shapes (Q=128, K=100, C=128, R=196, one block
+    a pair): mode (d) with the qk method's cost, f32 and bf16, and modes a
+    (full OT) and c (partial OT 0.5 with group exit) from S."""
+    from vit_reranking_tpu_torch.ops.rerank import kernel_layout
+    from vit_reranking_tpu_torch.ops.similarity import l2_normalize
+
+    Q, K, C, R, D = 128, 100, 128, 196, 64
+    _, top, S32 = k1_problem(torch, Q, K, C, R, seed=6)
+    # the qk method's inputs, as fused_qk_rerank_scores builds them: q and
+    # k head means of unit norm, dp = k . q / 8, the cost its patch block,
+    # the marginals its cls column and row
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    q, k = (l2_normalize(torch.randn(Q, R + 1, D, device="cuda", generator=gen)) for _ in "qk")
+    kg = k[top]  # (Q, K, R + 1, D)
+    cost = (torch.matmul(kg[:, :, 1:].reshape(Q, K * R, D), q[:, 1:].transpose(1, 2)) / 8.0)
+    cost = cost.reshape(Q * K, R, R).contiguous()
+    u = torch.relu(torch.matmul(kg[:, :, 1:], q[:, None, 0, :, None])[..., 0] / 8.0)
+    v = torch.relu(torch.matmul(kg[:, :, 0], q[:, 1:].transpose(1, 2)) / 8.0)
+    u, v = (t / (t.sum(-1, keepdim=True) + 1e-5) for t in (u, v))
+    u, v = u.reshape(Q * K, R).contiguous(), v.reshape(Q * K, R).contiguous()
+    del kg
+    say("[K1 R=196] layouts: full OT " + str(kernel_layout(R, False, 1))
+        + ", partial OT group exit " + str(kernel_layout(R, True, K))
+        + " (layout, shared-memory bytes, the card's limit)")
+    qk = k1_check(torch, "K1 qk f32, mode (d), R=196", S32, u, v, Q, K, cost=cost)
+    k1_check(torch, "K1 qk bf16 stream, mode (d), R=196", S32.to(torch.bfloat16), u, v, Q, K,
+             cost=cost.to(torch.bfloat16))
+    k1_check(torch, "K1 R=196 full OT f32, mode a", S32, u, v, Q, K)
+    k1_check(torch, "K1 R=196 partial OT 0.5, group exit, mode c", S32, u, v, Q, K,
+             ot_part=0.5, group=K)
+    del S32, cost
+    torch.cuda.empty_cache()
+    return qk
 
 
 def phase_k2(torch):
@@ -352,7 +412,7 @@ MAIN_ARGS = [
 ]
 
 
-def run_main_path(torch):
+def run_main_path(torch, args=MAIN_ARGS):
     """The port's run_eval on --dataset synthetic, from a scratch working
     directory (it appends its CSV to test_results/ there); returns the
     results and the wall seconds."""
@@ -361,9 +421,19 @@ def run_main_path(torch):
 
     with scratch_cwd():
         t0 = time.perf_counter()
-        results = run_eval(from_args(MAIN_ARGS), trunc_nums=(0, 100))
+        results = run_eval(from_args(args), trunc_nums=(0, 100))
         torch.cuda.synchronize()
         return results, time.perf_counter() - t0
+
+
+def check_metrics(tag, results):
+    for t in (0, 100):
+        say(f"[{tag}] trunc {t}: R@1={results['r1'][t]:.4f} RP={results['rp'][t]:.4f} "
+            f"MAP@R={results['mapr'][t]:.4f}")
+    for m in results:
+        for t, val in results[m].items():
+            if not (math.isfinite(val) and 0.0 <= val <= 100.0):
+                raise AssertionError(f"{tag}: metric {m}@{t} = {val}")
 
 
 def phase_main(torch):
@@ -377,14 +447,8 @@ def phase_main(torch):
     results, wall = run_main_path(torch)
     launches = {"sinkhorn_score": sinkhorn_scores.launches,
                 "filter_threshold": filter_threshold.launches}
-    for t in (0, 100):
-        say(f"[main] trunc {t}: R@1={results['r1'][t]:.4f} RP={results['rp'][t]:.4f} "
-            f"MAP@R={results['mapr'][t]:.4f}")
+    check_metrics("main", results)
     say(f"[main] run_eval {wall:.3f}s (first run, after the kernel checks), launches {launches}")
-    for m in results:
-        for t, val in results[m].items():
-            if not (math.isfinite(val) and 0.0 <= val <= 100.0):
-                raise AssertionError(f"metric {m}@{t} = {val}")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
@@ -838,6 +902,67 @@ def phase_swin_reference(torch):
                              f"{(fn.fwd_launches, fn.bwd_launches)}")
 
 
+VIT_ARGS = [
+    "--dataset", "synthetic", "--synthetic_classes", "8", "--synthetic_per_class", "16",
+    "--synthetic_size", "224", "--bs", "16", "--arch", "vit_normalize", "--embed_dim", "128",
+    "--use_ot", "--grid_size", "14", "--seed", "0", "--device", "cuda",
+]
+VIT_QK_ARGS = VIT_ARGS + ["--use_qk", "--blk_ind", "0"]
+
+
+def phase_vit(torch, tag, args):
+    """test_diml_vit's run_eval at full DeiT-S (224 px, 196 patches, grid
+    14, exact top-100, full OT) with K1's launch counts set to 0 just before
+    and read just after: the qk method must launch mode (d), the featvit
+    method K1 from S alone."""
+    from vit_reranking_tpu_torch.ops.rerank import sinkhorn_scores
+
+    sinkhorn_scores.launches = sinkhorn_scores.cost_launches = 0
+    results, wall = run_main_path(torch, args)
+    launches = {"sinkhorn_score": sinkhorn_scores.launches,
+                "sinkhorn_score_cost": sinkhorn_scores.cost_launches}
+    check_metrics(tag, results)
+    say(f"[{tag}] run_eval {wall:.3f}s (first run), launches {launches}")
+    qk = "--use_qk" in args
+    if launches["sinkhorn_score"] <= 0 or (launches["sinkhorn_score_cost"] > 0) != qk:
+        raise AssertionError(f"{tag}: K1 was not launched as the path needs: {launches}")
+    return launches
+
+
+def phase_vit_profile(torch):
+    """A second, warm run of the qk path under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = run_main_path(torch, VIT_QK_ARGS)
+    report_profile("vit-profile", "warm qk run_eval", wall, prof, top=12,
+                   port_kernels=("sinkhorn_score",))
+
+
+def phase_vit_reference(torch):
+    """Full DeiT-S forward (with block 0's q and k) on the card against the
+    CPU, same weights and images."""
+    from vit_reranking_tpu_torch.models.vit import ViTNetwork
+
+    model = ViTNetwork(embed_dim=128, generator=torch.Generator().manual_seed(0)).eval()
+    x = torch.randn(2, 3, 224, 224, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        ref = model(x, ret_attn=True)
+        out = model.cuda()(x.cuda(), ret_attn=True)
+    errs = {}
+    for name, a, b in (("embed", out[0], ref[0]),
+                       *((k, out[2][k], ref[2][k]) for k in ("head_tokens", "q", "k"))):
+        a = a.cpu()
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            raise AssertionError(f"{name}: shape {tuple(a.shape)} or non-finite values")
+        errs[name] = float((a - b).abs().max())
+    say("[vit-reference] card vs CPU DeiT-S forward, max abs err: "
+        + ", ".join(f"{k}={v:.3e}" for k, v in errs.items()))
+    bad = {k: v for k, v in errs.items() if not v <= FWD_TOL}
+    if bad:
+        raise AssertionError(f"card and CPU DeiT-S forward disagree beyond {FWD_TOL}: {bad}")
+
+
 def main():
     import torch
 
@@ -867,6 +992,11 @@ def main():
     k4b_launches = phase_swin_batched(torch)
     phase_swin_ab(torch)
     phase_swin_reference(torch)
+    k1_qk = phase_k1_large(torch)
+    qk_launches = phase_vit(torch, "vit-qk", VIT_QK_ARGS)
+    phase_vit(torch, "vit-featvit", VIT_ARGS)
+    phase_vit_profile(torch)
+    phase_vit_reference(torch)
     kernels = [
         dict(name="sinkhorn_score", route="cuda",
              source="vit_reranking_tpu_torch/csrc/sinkhorn_score.cu",
@@ -900,6 +1030,10 @@ def main():
              source="vit_reranking_tpu_torch/csrc/swin_attention.cu",
              replaces="vit_reranking_tpu/ops/swin_attention_pallas.py:88",
              launches=k4b_launches["bwd"], **k4b["bwd"]),
+        dict(name="sinkhorn_score_cost", route="cuda",
+             source="vit_reranking_tpu_torch/csrc/sinkhorn_score.cu",
+             replaces="vit_reranking_tpu/ops/rerank_pallas.py:115",
+             launches=qk_launches["sinkhorn_score_cost"], **k1_qk),
     ]
     say(f"[done] {time.perf_counter() - t_start:.3f}s in all")
     say(json.dumps({"kernels": kernels}))

@@ -40,7 +40,7 @@ def test_port_files_found():
     names = {str(p.relative_to(ROOT)) for p in FILES}
     for module in ("ops/attention", "engine/train", "losses/margin", "miners/distance",
                    "data/samplers", "core/checkpoint", "core/logger", "cli/train_baseline",
-                   "models/swin", "ops/swin_attention"):
+                   "models/swin", "ops/swin_attention", "models/vit", "cli/test_diml_vit"):
         assert f"vit_reranking_tpu_torch/{module}.py" in names
 
 

@@ -6,7 +6,9 @@ where the kernel tests run (``python -m pytest --noconftest
 tests/test_torch_kernels.py``; the repository's conftest.py imports JAX).
 Without a card those tests skip: a CUDA kernel has no CPU mode.  Kernel K1
 matches its plain version to 1e-5 on O(1) scores (mat-vec sums in another
-order); kernel K2 is bitwise equal to its plain version; kernel K3's forward
+order), with its OT kernel from S or from a separate cost (mode (d), the qk
+method), in the warp layout (R <= 83) and the block layout (R = 100, 196);
+kernel K2 is bitwise equal to its plain version; kernel K3's forward
 matches its plain version to 1e-5 and its dq, dk, dv match autograd through
 the plain version to 1e-4 of their largest magnitude (online softmax and
 tiled sums in another order).  Kernels K4a and K4b (Swin window attention)
@@ -24,7 +26,9 @@ from vit_reranking_tpu_torch.ops.attention import (
 )
 from vit_reranking_tpu_torch.models.swin import _shift_attn_mask
 from vit_reranking_tpu_torch.ops import swin_attention as swa
-from vit_reranking_tpu_torch.ops.rerank import sinkhorn_scores, sinkhorn_scores_plain
+from vit_reranking_tpu_torch.ops.rerank import (
+    kernel_layout, sinkhorn_scores, sinkhorn_scores_plain,
+)
 from vit_reranking_tpu_torch.ops.rollout import filter_threshold, filter_threshold_plain
 
 torch.set_num_threads(2)
@@ -71,6 +75,15 @@ def test_wrappers_take_plain_versions_on_cpu():
     before = filter_threshold.launches
     assert torch.equal(filter_threshold(flat, 50), filter_threshold_plain(flat, 50))
     assert filter_threshold.launches == before
+
+
+def test_cost_wrapper_takes_plain_version_on_cpu():
+    S, u, v = _pairs(9, P=4, R=9)
+    C, _, _ = _pairs(10, P=4, R=9)
+    before = sinkhorn_scores.launches
+    assert torch.equal(sinkhorn_scores(S, u, v, cost=C),
+                       sinkhorn_scores_plain(S, u, v, cost=C))
+    assert sinkhorn_scores.launches == before
 
 
 def test_wrappers_raise_on_other_devices():
@@ -125,6 +138,67 @@ def test_sinkhorn_kernel_matches_plain_on_card(cuda, ot_part, group, dtype):
     assert sinkhorn_scores.launches == before + 1
     assert torch.isfinite(out).all()
     assert float((out - ref).abs().max()) <= K1_TOL
+
+
+@pytest.mark.parametrize(
+    "R,ot_part,group,layout",
+    [(100, 1.0, 1, "block"), (196, 1.0, 1, "block"), (100, 0.5, 1, "block"),
+     (196, 0.5, 1, "block"), (196, 0.5, 100, "group"), (83, 1.0, 1, "warp")],
+    ids=["a-R100", "a-R196", "c-R100", "c-R196", "c-R196-group", "a-R83-warp"],
+)
+def test_sinkhorn_kernel_large_r_matches_plain_on_card(cuda, R, ot_part, group, layout):
+    """Full OT (mode a) and partial OT (mode c) at R = 100 and 196, which
+    no longer fit 8 pairs a block: one block a pair (or, under group exit,
+    one block a group).  R = 83 is the largest R the warp layout takes.
+    Exit threshold 1e-3, so every layout runs its loop many times."""
+    S, u, v = (t.to(cuda) for t in _pairs(11, P=200, R=R))
+    assert kernel_layout(R, ot_part <= 0.999, group)[0] == layout
+    kw = dict(ot_part=ot_part, group=group, thresh=1e-3)
+    out = sinkhorn_scores(S, u, v, **kw)
+    ref, iters = sinkhorn_scores_plain(S, u, v, return_iters=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and int(iters.min()) > 2
+    assert float((out - ref).abs().max()) <= K1_TOL
+    ranks = lambda x: torch.argsort(-x.view(2, 100), dim=1, stable=True)
+    assert torch.equal(ranks(out), ranks(ref))
+
+
+@pytest.mark.parametrize("R", [49, 196])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_sinkhorn_kernel_cost_mode_matches_plain_on_card(cuda, R, dtype):
+    """Mode (d): Km from a separate cost C of S's dtype, the score against
+    S; the same kernel without C gives other scores."""
+    S, u, v = (t.to(cuda) for t in _pairs(12, P=256, R=R))
+    C = _pairs(13, P=256, R=R)[0].to(cuda)
+    S, C = S.to(dtype), C.to(dtype)
+    before = (sinkhorn_scores.launches, sinkhorn_scores.cost_launches)
+    out = sinkhorn_scores(S, u, v, cost=C)
+    ref = sinkhorn_scores_plain(S, u, v, cost=C)
+    own = sinkhorn_scores(S, u, v)
+    torch.cuda.synchronize()
+    assert (sinkhorn_scores.launches, sinkhorn_scores.cost_launches) == (
+        before[0] + 2, before[1] + 1)
+    assert torch.isfinite(out).all()
+    assert float((out - ref).abs().max()) <= K1_TOL
+    assert float((out - own).abs().max()) > 1e-3
+    ranks = lambda x: torch.argsort(-x.view(16, 16), dim=1, stable=True)
+    assert torch.equal(ranks(out), ranks(ref))
+
+
+def test_sinkhorn_kernel_refuses_r_beyond_shared_memory(cuda):
+    """R = 240 fits no layout in a 227 KB block (one block a pair needs
+    233 KB): ValueError before the launch, naming the limit, no launch."""
+    S, u, v = (t.to(cuda) for t in _pairs(14, P=1, R=240))
+    layout, smem, limit = kernel_layout(240, False, 1)
+    assert layout is None and smem > limit
+    assert kernel_layout(239, False, 1)[0] == "block"
+    before = sinkhorn_scores.launches
+    with pytest.raises(ValueError, match=f"limit is {limit}"):
+        sinkhorn_scores(S, u, v)
+    with pytest.raises(ValueError, match="cost"):
+        sinkhorn_scores(S[:, :10, :10].contiguous(), u[:, :10].contiguous(),
+                        v[:, :10].contiguous(), cost=S)
+    assert sinkhorn_scores.launches == before
 
 
 @pytest.mark.parametrize("B,N", [(3, 70_000), (2, 153_664), (1, 1_000_003)])

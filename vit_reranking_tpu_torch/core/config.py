@@ -1,9 +1,9 @@
 """Typed configuration for the port's evaluation and training paths.
 
 A subset of the JAX package's ``core/config.py`` (which mirrors the
-reference's argparse flags, parameters.py:5-244): the fields the rollout
-rerank evaluation and the margin-loss training read, with the same names and
-defaults, plus ``device``.  ``build_parser()`` regenerates an argparse parser
+reference's argparse flags, parameters.py:5-244): the fields the rerank
+evaluation (rollout, featvit and qk methods) and the margin-loss training
+read, with the same names and defaults, plus ``device``.  ``build_parser()`` regenerates an argparse parser
 from the fields and ``from_args`` parses a command line.
 """
 
@@ -45,11 +45,17 @@ class Config:
     # directory's Training_Results, as in the JAX package
     save_path: str = os.getcwd() + "/Training_Results"
     group: str = "default"
-    # ---- DIML evaluation (parameters.py:73-120)
+    # ---- ViT / DIML evaluation (parameters.py:73-120)
+    blk_ind: int = 0  # ViT block whose q/k the qk method reads
     grid_size: int = 7
+    use_cls_token: bool = False
     use_uniform: bool = False
+    use_inverse: bool = False
+    use_minus: bool = False
+    use_soft: bool = False
     use_rollout: bool = False
     use_ot: bool = False
+    temperature: float = 0.1
     ot_part: float = 1.0
     debug: bool = False
     # ---- margin loss and distance miner (parameters.py:147-224)
@@ -72,6 +78,7 @@ class Config:
     synthetic_noise: float = 0.35
     synthetic_nuisance: float = 1.0
     approx_topk: bool = False
+    use_qk: bool = False  # ViT attention-marginal rerank (eval_attn_diml path)
     # stream the rerank kernel's similarity tensor in bf16 (loop math f32)
     rerank_bf16: bool = False
     # bf16 activation training and the narrowed softmax.  Tri-state as in the

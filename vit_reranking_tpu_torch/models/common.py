@@ -31,6 +31,11 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
 
 
+def exact_gelu(x: torch.Tensor) -> torch.Tensor:
+    """The erf GELU of timm's Swin and ViT (Flax ``nn.gelu(approximate=False)``)."""
+    return F.gelu(x, approximate="none")
+
+
 class LayerNormFp32(nn.Module):
     """LayerNorm (eps 1e-5) computed in fp32 regardless of input dtype
     (reference architectures/cvt.py:44-50)."""
@@ -45,7 +50,7 @@ class LayerNormFp32(nn.Module):
 
 class Mlp(nn.Module):
     """Two-layer MLP (reference cvt.py:58-79), QuickGELU unless ``act``
-    says otherwise (Swin passes the exact erf GELU)."""
+    says otherwise (Swin and ViT pass the exact erf GELU)."""
 
     def __init__(self, in_features: int, hidden_features: int, out_features: int,
                  dropout: float = 0.0, act: Callable[[torch.Tensor], torch.Tensor] = quick_gelu):

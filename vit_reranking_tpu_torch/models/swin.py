@@ -28,11 +28,10 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from ..ops.similarity import l2_normalize
 from ..ops.swin_attention import swin_attention
-from .common import DropPath, Mlp, init_weights, trunc_normal_
+from .common import DropPath, Mlp, exact_gelu, init_weights, trunc_normal_
 
 # The window-attention kernels, off by default as in the JAX package
 # (models/swin.py:73); SWIN_WINDOW_ATTENTION=1 turns them on.  Read at call
@@ -84,11 +83,6 @@ def window_reverse(wins: torch.Tensor, window: int, H: int, W: int) -> torch.Ten
     B = wins.shape[0] // ((H // window) * (W // window))
     x = wins.reshape(B, H // window, W // window, window, window, -1)
     return x.permute(0, 1, 3, 2, 4, 5).reshape(B, H, W, -1)
-
-
-def exact_gelu(x: torch.Tensor) -> torch.Tensor:
-    """The erf GELU of timm's Swin (Flax ``nn.gelu(approximate=False)``)."""
-    return F.gelu(x, approximate="none")
 
 
 class LayerNorm32(nn.LayerNorm):
