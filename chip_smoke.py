@@ -46,12 +46,14 @@ import time
 
 # published H100 SXM peaks, at the full 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+FP32_OPS_PER_S = 67e12  # f32 outside the tensor cores (SIMT)
+TF32_OPS_PER_S = 495e12  # TF32 on the tensor cores, dense
 
 K1_TOL = 1e-5  # kernel vs plain scores: f32 mat-vec sums in another order
 FWD_TOL = 1e-4  # card vs CPU forward: cuDNN/cuBLAS vs CPU f32 sum order, 13 blocks deep
-# K3 vs plain: the online softmax and the 64-wide tiles sum in another order;
-# dk and dv sum 3136 rows in another order, so their bound is relative
+# K3 vs plain: the online softmax and the 64-wide tiles sum in another order,
+# and each product is three TF32 products (within about 2^-21 relative of
+# f32); dk and dv sum 3136 rows in another order, so their bound is relative
 K3_FWD_TOL = 1e-5
 K3_GRAD_RTOL = 1e-4
 # card vs CPU train step: the forward's f32 sum-order differences (FWD_TOL
@@ -82,11 +84,12 @@ def cuda_ms(torch, fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
-def bound(bytes_moved, ops):
-    """Least time the card could take: bytes over HBM rate vs ops over the
-    f32 rate, in ms, and which of the two bounds it."""
+def bound(bytes_moved, ops, ops_per_s=FP32_OPS_PER_S):
+    """Least time the card could take: bytes over HBM rate vs ops over
+    ``ops_per_s`` (by default the f32 SIMT rate), in ms, and which of the
+    two bounds it."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -326,8 +329,8 @@ def sdpa_backend(*args, **kw):
 def phase_k3(torch):
     """Kernel K3, forward and backward, against its plain versions at the
     main path's shape: CvT-13 stage 0 at 224 px and batch 112 (BH=112,
-    T=3136, Tkv=784, D=64), with the yardstick of
-    scaled_dot_product_attention on the same inputs."""
+    T=3136, Tkv=784, D=64), the backward twice for the same bits, with the
+    yardstick of scaled_dot_product_attention on the same inputs."""
     import torch.nn.functional as F
     from torch.nn.attention import sdpa_kernel
 
@@ -347,6 +350,7 @@ def phase_k3(torch):
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
     og = kv_resident_attention(qg, kg, vg, scale)
     grads = torch.autograd.grad(og, (qg, kg, vg), do, retain_graph=True)
+    again = torch.autograd.grad(og, (qg, kg, vg), do, retain_graph=True)
     # the plain version's gradient is autograd's, through a kept graph that
     # is timed below as the plain backward
     rq, rk, rv = (t.clone().requires_grad_() for t in (q, k, v))
@@ -357,7 +361,8 @@ def phase_k3(torch):
     rel = {n: float((a - b).abs().max() / b.abs().max())
            for n, a, b in zip(("dq", "dk", "dv"), grads, ref_grads)}
     bwd_err = max(float((a - b).abs().max()) for a, b in zip(grads, ref_grads))
-    del ref, ref_grads
+    same_bits = all(torch.equal(a, b) for a, b in zip(grads, again))
+    del ref, ref_grads, again
 
     backend = sdpa_backend(q[:1, None], k[:1, None], v[:1, None], scale=scale)
     q4, k4, v4 = (t.view(BH, 1, -1, D).clone().requires_grad_() for t in (q, k, v))
@@ -380,16 +385,23 @@ def phase_k3(torch):
     bwd_plain_ms = cuda_ms(torch, lambda: torch.autograd.grad(ro, (rq, rk, rv), do,
                                                               retain_graph=True), reps=3)
     del ro, rq, rk, rv
+    # the kernel computes each f32 product as three TF32 tensor-core
+    # products (csrc/kv_attention.cu), so its bound is 3 x ops at the TF32
+    # rate; the f32 SIMT bound of the same products is printed beside it
     elem = 4
-    fwd_bound = bound((q.numel() * 2 + k.numel() * 2) * elem, 4 * T * Tkv * D * BH)
-    bwd_bound = bound((q.numel() * 4 + k.numel() * 4) * elem, 10 * T * Tkv * D * BH)
+    fwd_bytes, fwd_ops = (q.numel() * 2 + k.numel() * 2) * elem, 4 * T * Tkv * D * BH
+    bwd_bytes, bwd_ops = (q.numel() * 4 + k.numel() * 4) * elem, 10 * T * Tkv * D * BH
+    fwd_bound = bound(fwd_bytes, 3 * fwd_ops, TF32_OPS_PER_S)
+    bwd_bound = bound(bwd_bytes, 3 * bwd_ops, TF32_OPS_PER_S)
+    fwd_simt, bwd_simt = bound(fwd_bytes, fwd_ops)[0], bound(bwd_bytes, bwd_ops)[0]
     say(f"[K3 fwd BH={BH} T={T} Tkv={Tkv} D={D}] max_abs_err={fwd_err:.3e} "
         f"kernel_ms={fwd_ms:.4f} plain_ms={fwd_plain_ms:.4f} sdpa_ms={sdpa_fwd_ms:.4f} "
-        f"bound_ms={fwd_bound[0]:.5f} ({fwd_bound[1]})")
+        f"bound_ms 3xTF32={fwd_bound[0]:.5f} ({fwd_bound[1]}) f32 SIMT={fwd_simt:.5f}")
     say(f"[K3 bwd BH={BH} T={T} Tkv={Tkv} D={D}] max_abs_err={bwd_err:.3e} rel_err "
         + " ".join(f"{n}={e:.3e}" for n, e in rel.items())
-        + f" kernel_ms={bwd_ms:.4f} plain_ms={bwd_plain_ms:.4f} sdpa_bwd_ms={sdpa_bwd_ms:.4f} "
-        f"bound_ms={bwd_bound[0]:.5f} ({bwd_bound[1]})")
+        + f" same_bits_twice={same_bits} kernel_ms={bwd_ms:.4f} plain_ms={bwd_plain_ms:.4f} "
+        f"sdpa_bwd_ms={sdpa_bwd_ms:.4f} bound_ms 3xTF32={bwd_bound[0]:.5f} ({bwd_bound[1]}) "
+        f"f32 SIMT={bwd_simt:.5f}")
     say(f"[K3] sdpa backend in f32: {backend.name}; sdpa fwd+bwd {sdpa_fb_ms:.4f} ms, "
         f"K3 fwd+bwd {fwd_ms + bwd_ms:.4f} ms")
     if not fwd_err <= K3_FWD_TOL:
@@ -397,6 +409,8 @@ def phase_k3(torch):
     bad = {n: e for n, e in rel.items() if not e <= K3_GRAD_RTOL}
     if bad:
         raise AssertionError(f"K3 backward disagrees with autograd of the plain version: {bad}")
+    if not same_bits:
+        raise AssertionError("K3 backward gave other bits on a second run of the same inputs")
     return {
         "fwd": dict(max_abs_err=fwd_err, ms=fwd_ms, plain_ms=fwd_plain_ms,
                     bound_ms=fwd_bound[0], bound_by=fwd_bound[1], library_ms=sdpa_fwd_ms),

@@ -110,3 +110,47 @@ def test_cvt_attention_module_dispatch(monkeypatch, with_cls, ret_attn, routed):
     assert bool(calls) == routed
     assert (weights is None) == (not ret_attn)
     np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-6)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """TF32 rounding of float32 values as cvt.rna does it: to nearest, ties
+    away from zero, keeping 10 mantissa bits (add half of the dropped 13
+    bits to the bit pattern, then clear them)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_truncated(x: torch.Tensor) -> torch.Tensor:
+    """What the tensor cores read of a float32 operand: its low 13 bits
+    dropped."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_matmul(a: torch.Tensor, b: torch.Tensor, terms: int) -> torch.Tensor:
+    """a @ b from TF32 operands, summed in f32, as the tensor cores compute
+    it: one product of the rounded operands (terms=1), or K3's split
+    hi = tf32(x), lo = x - hi read truncated, and hi hi + hi lo + lo hi
+    (terms=3).  Products of two TF32 values are exact in f32, so a float32
+    matmul of the parts gives what the tensor cores give up to the order
+    of the sum."""
+    ah, bh = _tf32(a), _tf32(b)
+    if terms == 1:
+        return ah @ bh
+    al, bl = _tf32_truncated(a - ah), _tf32_truncated(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+@pytest.mark.parametrize("terms,within", [(3, True), (1, False)], ids=["3xTF32", "1xTF32"])
+def test_split_tf32_products_keep_k3_forward_tolerance(terms, within):
+    """The precision argument behind K3's tensor-core products, on one head
+    of CvT-13 stage 0 (T=3136, Tkv=784, D=64): the forward's two products
+    in the 3-term split stay within the card check's K3 forward tolerance
+    (1e-5) of the f32 plain version, and a single TF32 product does not."""
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((n, 64)).astype(np.float32))
+               for n in (3136, 784, 784))
+    p = torch.softmax(_tf32_matmul(q, k.T, terms) * SCALE, dim=-1)
+    out = _tf32_matmul(p, v, terms)
+    ref = ap.kv_resident_attention_plain(q[None], k[None], v[None], SCALE)[0]
+    err = float((out - ref).abs().max())
+    assert (err <= 1e-5) == within, err

@@ -1,5 +1,6 @@
-"""Static guard: the PyTorch port and chip_smoke.py import no JAX, no Flax,
-nothing of the JAX package, and no PIL at module level.
+"""Static guard: the PyTorch port and its card scripts (chip_smoke.py,
+chip_k3_variants.py) import no JAX, no Flax, nothing of the JAX package,
+and no PIL at module level.
 
 The machine with the card has none of JAX, Flax or PIL, so any such import
 there ends the run before a kernel is built.
@@ -13,7 +14,9 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "vit_reranking_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SCRIPTS = ("chip_smoke", "chip_k3_variants")
+FILES = sorted((ROOT / "vit_reranking_tpu_torch").rglob("*.py")) + [
+    ROOT / f"{name}.py" for name in SCRIPTS]
 BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "vit_reranking_tpu")
 
 
@@ -45,7 +48,7 @@ def test_port_files_found():
 
 
 def test_every_port_module_imports_without_jax():
-    """Import every module of the port and chip_smoke.py in a fresh process
+    """Import every module of the port and the card scripts in a fresh process
     where JAX, Flax, PIL and the JAX package cannot be imported, as on the
     machine with the card."""
     code = f"""
@@ -57,7 +60,8 @@ import vit_reranking_tpu_torch as pkg
 mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for m in mods:
     importlib.import_module(m)
-import chip_smoke
+for m in {SCRIPTS!r}:
+    importlib.import_module(m)
 print(len(mods))
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

@@ -9,9 +9,10 @@ matches its plain version to 1e-5 on O(1) scores (mat-vec sums in another
 order), with its OT kernel from S or from a separate cost (mode (d), the qk
 method), in the warp layout (R <= 83) and the block layout (R = 100, 196);
 kernel K2 is bitwise equal to its plain version; kernel K3's forward
-matches its plain version to 1e-5 and its dq, dk, dv match autograd through
-the plain version to 1e-4 of their largest magnitude (online softmax and
-tiled sums in another order).  Kernels K4a and K4b (Swin window attention)
+(3xTF32 tensor-core products) matches its plain version to 1e-5 and its dq,
+dk, dv match autograd through the plain version to 1e-4 of their largest
+magnitude (online softmax and tiled sums in another order), the same bits
+from run to run.  Kernels K4a and K4b (Swin window attention)
 hold the same bounds against their plain versions, dbias/dadd included, and
 give bitwise the same dbias/dadd from run to run (fixed-order sums).
 """
@@ -216,8 +217,9 @@ def test_filter_kernel_bitwise_matches_plain_on_card(cuda, B, N):
 
 @pytest.mark.parametrize(
     "BH,T,Tkv,D",
-    [(2, 3136, 784, 64), (3, 100, 50, 64), (2, 72, 130, 128)],
-    ids=["stage0", "ragged", "d128"],
+    [(2, 3136, 784, 64), (3, 100, 50, 64), (2, 72, 130, 128), (2, 64, 13, 64),
+     (2, 72, 130, 192), (2, 3136, 784, 192)],
+    ids=["stage0", "ragged", "d128", "tkv13", "d192-t72", "stage0-d192"],
 )
 def test_kv_attention_kernel_matches_plain_on_card(cuda, BH, T, Tkv, D):
     gen = torch.Generator(device=cuda).manual_seed(7)
@@ -240,6 +242,23 @@ def test_kv_attention_kernel_matches_plain_on_card(cuda, BH, T, Tkv, D):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
 
 
+@pytest.mark.parametrize("T,Tkv,D", [(3136, 784, 64), (100, 13, 192)],
+                         ids=["stage0", "ragged-d192"])
+def test_kv_attention_backward_is_bitwise_repeatable_on_card(cuda, T, Tkv, D):
+    """Fixed-order sums and no atomics: dq, dk and dv are the same bits on
+    a second backward of the same inputs."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q, do = (torch.randn(2, T, D, device=cuda, generator=gen) for _ in range(2))
+    k, v = (torch.randn(2, Tkv, D, device=cuda, generator=gen) for _ in range(2))
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    out = kv_resident_attention(qg, kg, vg, D ** -0.5)
+    first = torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True)
+    second = torch.autograd.grad(out, (qg, kg, vg), do)
+    torch.cuda.synchronize()
+    for a, b, name in zip(first, second, ("dq", "dk", "dv")):
+        assert torch.equal(a, b), name
+
+
 def test_kv_attention_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.zeros(1, 16, 32, device=cuda)
     with pytest.raises(ValueError):
@@ -247,6 +266,9 @@ def test_kv_attention_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.zeros(1, 16, 64, device=cuda, dtype=torch.float64)
     with pytest.raises(ValueError):
         kv_resident_attention(q, q, q, 0.1)  # float64
+    q = torch.zeros(1 * 16 * 64 + 1, device=cuda)[1:].view(1, 16, 64)
+    with pytest.raises(ValueError):
+        kv_resident_attention(q, q, q, 0.1)  # not 16-byte aligned
 
 
 @pytest.mark.parametrize("D", [192, 256])

@@ -41,10 +41,10 @@ def kv_resident_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
 def _check_cuda(**tensors: torch.Tensor) -> None:
     for name, t in tensors.items():
         if t.device.type != "cuda" or t.dtype != torch.float32 or t.ndim != 3 \
-                or not t.is_contiguous():
+                or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(
-                f"kv_resident_attention: {name} must be a contiguous 3-D float32 CUDA "
-                f"tensor, got {tuple(t.shape)} {t.dtype} on {t.device}"
+                f"kv_resident_attention: {name} must be a contiguous, 16-byte aligned 3-D "
+                f"float32 CUDA tensor, got {tuple(t.shape)} {t.dtype} on {t.device}"
             )
 
 
