@@ -35,10 +35,12 @@ and so does a run without a CUDA card.
 """
 
 import contextlib
+import ctypes
 import importlib.util
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -152,6 +154,37 @@ def phase_host(torch, native):
     say("[host] importable: " + ", ".join(f"{m} {'yes' if ok else 'no'}" for m, ok in found.items()))
 
 
+def kernel_name(signature):
+    """``name<args>`` of a kernel from its demangled signature, with integer
+    casts dropped and bools as 1 and 0 (``cu++filt`` writes ``(int)14``)."""
+    m = re.search(r"(\w+kernel(?:<[^()]*(?:\([a-z ]+\)[^()]*)*>)?)\(", signature)
+    name = m.group(1) if m else signature
+    name = re.sub(r"\((?:unsigned |signed )?(?:int|long|long long|short|char|bool)\)", "", name)
+    return re.sub(r"\btrue\b", "1", re.sub(r"\bfalse\b", "0", name))
+
+
+def kernel_resources(native, source):
+    """{kernel<args>: "N registers, spills"} from the compiler's report for
+    ``csrc/<source>.cu`` (empty when the log is absent); ``cu++filt``, which
+    ships beside ``nvcc``, demangles the names."""
+    log = native.BUILD_DIR / f"{source}.log"
+    if not log.exists():
+        return {}
+    mangled, res, spill = [], [], ""
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            mangled.append(m.group(1))
+        elif "spill" in line:
+            spill = line.split(",", 1)[1].strip()
+        elif "registers" in line and len(res) < len(mangled):
+            res.append(f"{line.split('Used ')[1].split(' ')[0]} registers, {spill}")
+    filt = os.path.join(os.path.dirname(native.nvcc_path()), "cu++filt")
+    names = subprocess.run([filt], input="\n".join(mangled), capture_output=True, text=True,
+                           check=True).stdout.splitlines()
+    return {kernel_name(n): r for n, r in zip(names, res)}
+
+
 def phase_build(native):
     t0 = time.perf_counter()
     secs = native.build()
@@ -160,18 +193,18 @@ def phase_build(native):
     say(f"[build] {wall:.3f}s wall ({', '.join(f'{k} {v:.3f}s' for k, v in secs.items())}), "
         f"build/kernels holds {size} bytes")
     for name in native.SOURCES:
-        log = native.BUILD_DIR / f"{name}.log"
-        if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    say(f"[build] {name}: {line.strip()}")
+        for kernel, res in kernel_resources(native, name).items():
+            say(f"[build] {name}: {kernel}: {res}")
 
 
 def k1_check(torch, tag, S, u, v, Q, K, **kw):
     """Kernel K1 against its plain version on Q x K pairs (S, u, v and, for
     mode (d), ``kw["cost"]``): max error, identical rankings, kernel and
     plain ms, and the bound from the iterations each pair ran."""
-    from vit_reranking_tpu_torch.ops.rerank import sinkhorn_scores, sinkhorn_scores_plain
+    from vit_reranking_tpu_torch.ops import native
+    from vit_reranking_tpu_torch.ops.rerank import (
+        kernel_layout, sinkhorn_scores, sinkhorn_scores_plain,
+    )
 
     out = sinkhorn_scores(S, u, v, **kw)
     ref, iters = sinkhorn_scores_plain(S, u, v, return_iters=True, **kw)
@@ -192,9 +225,19 @@ def k1_check(torch, tag, S, u, v, Q, K, **kw):
                    + (0 if cost is None else cost.numel() * cost.element_size()))
     ops = int(iters.sum()) * 4 * RP * RP + Q * K * (3 * RP * RP + 3 * R * R)
     bound_ms, bound_by = bound(bytes_moved, ops)
+    # the kernel instance the launcher takes, as the launcher names it
+    name = ctypes.create_string_buffer(128)
+    fn = native.launcher("sinkhorn_score", "sinkhorn_score_instance", [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_char_p, ctypes.c_int])
+    native.check(fn(R, int(RP > R), kw.get("group", 1), int(S.dtype == torch.bfloat16), name,
+                    len(name)), "sinkhorn_score_instance")
+    kernel = name.value.decode()
+    layout = kernel_layout(R, RP > R, kw.get("group", 1))[0]
+    res = kernel_resources(native, "sinkhorn_score").get(kernel, "resources not reported")
     say(f"[{tag}] max_abs_err={err:.3e} ranks_equal={same} plain_gaps_below_1e-7={near_ties} "
         f"mean_iters={float(iters.float().mean()):.2f} kernel_ms={ms:.4f} "
-        f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by})")
+        f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by}); layout {layout}, "
+        f"{kernel}: {res}")
     if not (err <= K1_TOL and same and math.isfinite(err)):
         raise AssertionError(f"{tag}: kernel disagrees with its plain version")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -218,9 +261,9 @@ def k1_problem(torch, Q, K, C, R, seed):
     return gen, top, S
 
 
-def phase_k1(torch):
-    """Kernel K1 against its plain version at the main path's shapes
-    (Q=128 queries, K=100 candidates, C=128 channels, R=49 patches)."""
+def k1_rollout_inputs(torch):
+    """The CvT main path's K1 inputs: Q=128 queries, K=100 candidates,
+    C=128 channels, R=49 patches, rollout marginals; (Q, K, S, u, v)."""
     from vit_reranking_tpu_torch.ops.rerank import rollout_marginals
 
     Q, K, C, R = 128, 100, 128, 49
@@ -228,6 +271,13 @@ def phase_k1(torch):
     roll = torch.randn(Q, R, generator=gen).abs().cuda()
     u, v = rollout_marginals(roll, roll[top])
     u, v = u.reshape(Q * K, R).contiguous(), v.reshape(Q * K, R).contiguous()
+    return Q, K, S32, u, v
+
+
+def phase_k1(torch):
+    """Kernel K1 against its plain version at the main path's shapes
+    (Q=128 queries, K=100 candidates, C=128 channels, R=49 patches)."""
+    Q, K, S32, u, v = k1_rollout_inputs(torch)
 
     # the main path's exit threshold (1e-1) stops group exit after 2
     # iterations on these inputs; 1e-3 runs the block-shared loop ~20 deep
@@ -241,11 +291,10 @@ def phase_k1(torch):
     return entries[0]  # the main path's mode
 
 
-def phase_k1_large(torch):
-    """K1 at DeiT-S's rerank shapes (Q=128, K=100, C=128, R=196, one block
-    a pair): mode (d) with the qk method's cost, f32 and bf16, and modes a
-    (full OT) and c (partial OT 0.5 with group exit) from S."""
-    from vit_reranking_tpu_torch.ops.rerank import kernel_layout
+def k1_qk_inputs(torch):
+    """DeiT-S's K1 inputs (Q=128, K=100, C=128, R=196): S, and the qk
+    method's marginals and cost as fused_qk_rerank_scores builds them;
+    (S, u, v, cost)."""
     from vit_reranking_tpu_torch.ops.similarity import l2_normalize
 
     Q, K, C, R, D = 128, 100, 128, 196, 64
@@ -263,6 +312,17 @@ def phase_k1_large(torch):
     u, v = (t / (t.sum(-1, keepdim=True) + 1e-5) for t in (u, v))
     u, v = u.reshape(Q * K, R).contiguous(), v.reshape(Q * K, R).contiguous()
     del kg
+    return S32, u, v, cost
+
+
+def phase_k1_large(torch):
+    """K1 at DeiT-S's rerank shapes (Q=128, K=100, C=128, R=196, one block
+    a pair): mode (d) with the qk method's cost, f32 and bf16, and modes a
+    (full OT) and c (partial OT 0.5 with group exit) from S."""
+    from vit_reranking_tpu_torch.ops.rerank import kernel_layout
+
+    Q, K, R = 128, 100, 196
+    S32, u, v, cost = k1_qk_inputs(torch)
     say("[K1 R=196] layouts: full OT " + str(kernel_layout(R, False, 1))
         + ", partial OT group exit " + str(kernel_layout(R, True, K))
         + " (layout, shared-memory bytes, the card's limit)")
@@ -277,12 +337,52 @@ def phase_k1_large(torch):
     return qk
 
 
+def k2_edge_rows(torch, kind, B, N, offset, gen):
+    """(B, N) f32 rows of one edge kind on the card, starting ``offset``
+    floats past a 16-byte boundary (a contiguous view)."""
+    buf = torch.empty(B * N + offset, device="cuda")
+    if kind == "ties":
+        vals = torch.tensor([0.0, 1e-3, 2.5e-3, 0.5], device="cuda")
+    elif kind == "signed zeros":
+        vals = torch.tensor([0.0, -0.0, 1e-30, -1e-30, 3e-4], device="cuda")
+    else:  # constant
+        vals = torch.tensor([0.25], device="cuda")
+    idx = torch.randint(0, len(vals), (B * N,), device="cuda", generator=gen)
+    buf[offset:] = vals[idx]
+    return buf[offset:].view(B, N)
+
+
 def phase_k2(torch):
-    """Kernel K2 against its plain version on rows of CvT-13's stage-0 and
-    stage-1 attention maps at 224 px, batch 32."""
+    """Kernel K2 against its plain version, bit for bit: edge rows (ties,
+    zeros of both signs, constant rows; k = 1, N / 10, N; rows on and off
+    16-byte boundaries), then rows of CvT-13's stage-0 and stage-1
+    attention maps at 224 px, batch 32, timed, with the launches of one
+    call counted by the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     from vit_reranking_tpu_torch.ops.rollout import filter_threshold, filter_threshold_plain
 
+    def same_bits(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
     gen = torch.Generator(device="cuda").manual_seed(1)
+    failed = []
+    cases = 0
+    for kind in ("ties", "signed zeros", "constant"):
+        for N in (70_001, 153_664):
+            for offset in (0, 1):
+                flat = k2_edge_rows(torch, kind, 3, N, offset, gen)
+                for k in (1, N // 10, N):
+                    cases += 1
+                    if not same_bits(filter_threshold(flat, k), filter_threshold_plain(flat, k)):
+                        failed.append((kind, N, offset, k))
+    torch.cuda.synchronize()
+    say(f"[K2 edge rows] {cases} cases (ties, signed zeros, constant; N 70001 and 153664; "
+        f"offset 0 and 1 float; k 1, N/10, N) bitwise_equal={not failed}")
+    if failed:
+        raise AssertionError(f"K2 differs from its plain version on edge rows: {failed}")
+
     entry = None
     for stage, (Tq, Tk) in (("stage 0", (3136, 784)), ("stage 1", (784, 196))):
         B, N = 32, Tq * Tk
@@ -291,7 +391,11 @@ def phase_k2(torch):
         out = filter_threshold(flat, k)
         ref = filter_threshold_plain(flat, k)
         torch.cuda.synchronize()
-        same = torch.equal(out, ref)
+        same = same_bits(out, ref)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            filter_threshold(flat, k)
+            torch.cuda.synchronize()
+        per_call = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
         ms = cuda_ms(torch, lambda: filter_threshold(flat, k), reps=5)
         plain_ms = cuda_ms(torch, lambda: filter_threshold_plain(flat, k), reps=3)
         # yardstick: one PyTorch call for the threshold alone (no zeroing)
@@ -299,7 +403,7 @@ def phase_k2(torch):
         bound_ms, bound_by = bound(2 * flat.numel() * 4, 40 * flat.numel())
         say(f"[K2 {stage} B={B} N={N}] bitwise_equal={same} kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.4f} kthvalue_ms={lib_ms:.4f} "
-            f"bound_ms={bound_ms:.5f} ({bound_by})")
+            f"bound_ms={bound_ms:.5f} ({bound_by}) device_launches_per_call={per_call}")
         if not same:
             raise AssertionError(f"K2 {stage}: kernel output differs from its plain version")
         if entry is None:
@@ -476,7 +580,8 @@ def phase_profile(torch):
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall = run_main_path(torch)
-    report_profile("profile", "warm run_eval", wall, prof, top=12)
+    report_profile("profile", "warm run_eval", wall, prof, top=12,
+                   port_kernels=("sinkhorn_", "_digit_kernel", "::apply_kernel<"))
 
 
 def phase_reference(torch):
@@ -950,7 +1055,7 @@ def phase_vit_profile(torch):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall = run_main_path(torch, VIT_QK_ARGS)
     report_profile("vit-profile", "warm qk run_eval", wall, prof, top=12,
-                   port_kernels=("sinkhorn_score",))
+                   port_kernels=("sinkhorn_",))
 
 
 def phase_vit_reference(torch):

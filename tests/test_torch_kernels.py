@@ -6,9 +6,10 @@ where the kernel tests run (``python -m pytest --noconftest
 tests/test_torch_kernels.py``; the repository's conftest.py imports JAX).
 Without a card those tests skip: a CUDA kernel has no CPU mode.  Kernel K1
 matches its plain version to 1e-5 on O(1) scores (mat-vec sums in another
-order), with its OT kernel from S or from a separate cost (mode (d), the qk
-method), in the warp layout (R <= 83) and the block layout (R = 100, 196);
-kernel K2 is bitwise equal to its plain version; kernel K3's forward
+order) with identical rankings, with its OT kernel from S or from a separate
+cost (mode (d), the qk method), in the warp layout (R <= 83) and the block
+layout (R = 84 to 239); kernel K2 is bitwise equal to its plain version,
+edge rows included; kernel K3's forward
 (3xTF32 tensor-core products) matches its plain version to 1e-5 and its dq,
 dk, dv match autograd through the plain version to 1e-4 of their largest
 magnitude (online softmax and tiled sums in another order), the same bits
@@ -186,6 +187,30 @@ def test_sinkhorn_kernel_cost_mode_matches_plain_on_card(cuda, R, dtype):
     assert torch.equal(ranks(out), ranks(ref))
 
 
+@pytest.mark.parametrize("R", [49, 64, 83, 84, 196, 239])
+@pytest.mark.parametrize("thresh", [1e-1, 0.0], ids=["exit-0.1", "every-iteration"])
+@pytest.mark.parametrize("mode", ["S", "cost", "cost-bf16"])
+def test_sinkhorn_kernel_per_pair_layouts_match_plain_on_card(cuda, R, thresh, mode):
+    """Full OT, each pair on its own exit, at the edges of the per-pair
+    layouts (the warp layout to R = 83, the block layout from 84 to 239):
+    Km from S or from a separate cost (mode (d)), f32 or a bf16 stream;
+    thresh 0 runs all 100 iterations."""
+    S, u, v = (t.to(cuda) for t in _pairs(15, P=200, R=R))
+    C = None if mode == "S" else _pairs(16, P=200, R=R)[0].to(cuda)
+    if mode == "cost-bf16":
+        S, C = S.to(torch.bfloat16), C.to(torch.bfloat16)
+    assert kernel_layout(R, False, 1)[0] == ("warp" if R <= 83 else "block")
+    out = sinkhorn_scores(S, u, v, thresh=thresh, cost=C)
+    ref, iters = sinkhorn_scores_plain(S, u, v, thresh=thresh, cost=C, return_iters=True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    if thresh == 0.0:
+        assert int(iters.min()) == 100
+    assert float((out - ref).abs().max()) <= K1_TOL
+    ranks = lambda x: torch.argsort(-x.view(2, 100), dim=1, stable=True)
+    assert torch.equal(ranks(out), ranks(ref))
+
+
 def test_sinkhorn_kernel_refuses_r_beyond_shared_memory(cuda):
     """R = 240 fits no layout in a 227 KB block (one block a pair needs
     233 KB): ValueError before the launch, naming the limit, no launch."""
@@ -202,17 +227,45 @@ def test_sinkhorn_kernel_refuses_r_beyond_shared_memory(cuda):
     assert sinkhorn_scores.launches == before
 
 
-@pytest.mark.parametrize("B,N", [(3, 70_000), (2, 153_664), (1, 1_000_003)])
-def test_filter_kernel_bitwise_matches_plain_on_card(cuda, B, N):
-    flat = _softmax_rows(6, B, N).to(cuda)
-    k = int(N * 0.1)
+def _filter_rows(kind, B, N, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "softmax":
+        return _softmax_rows(seed, B, N).numpy()
+    vals = {
+        "ties": [0.0, 1e-3, 2.5e-3, 0.5],
+        "signed-zeros": [0.0, -0.0, 1e-30, -1e-30, 3e-4],
+        "constant": [0.25],
+    }[kind]
+    return rng.choice(np.array(vals, dtype=np.float32), (B, N))
+
+
+@pytest.mark.parametrize(
+    "B,N,kind,offset",
+    [(3, 70_000, "softmax", 0), (2, 153_664, "softmax", 0), (1, 1_000_003, "softmax", 0),
+     (3, 70_001, "softmax", 1), (2, 70_003, "ties", 0), (2, 70_000, "signed-zeros", 1),
+     (2, 70_002, "constant", 3)],
+    ids=["N70000", "stage1", "N1000003", "off1-N70001", "ties", "signed-zeros-off1",
+         "constant-off3"],
+)
+@pytest.mark.parametrize("which_k", ["tenth", "one", "all"])
+def test_filter_kernel_bitwise_matches_plain_on_card(cuda, B, N, kind, offset, which_k):
+    """Bitwise equal to the plain version, on softmax rows and on edge rows
+    (heavy ties, zeros of both signs, a constant row), for k = N / 10, 1
+    and N, with rows on and off 16-byte boundaries (an odd N, and a view
+    ``offset`` floats into its buffer)."""
+    rows = _filter_rows(kind, B, N, 6)
+    buf = np.zeros(B * N + offset, dtype=np.float32)
+    buf[offset:] = rows.ravel()
+    flat = torch.from_numpy(buf).to(cuda)[offset:].view(B, N)
+    k = {"tenth": int(N * 0.1), "one": 1, "all": N}[which_k]
     before = filter_threshold.launches
     out = filter_threshold(flat, k)
     ref = filter_threshold_plain(flat, k)
     torch.cuda.synchronize()
     assert filter_threshold.launches == before + 1
-    assert torch.equal(out, ref)
-    assert int((out == 0).sum()) == B * k
+    assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
+    if kind == "softmax":
+        assert int((out == 0).sum()) == B * k
 
 
 @pytest.mark.parametrize(

@@ -115,8 +115,9 @@ _LAYOUTS = {0: "warp", 1: "block", 2: "group"}
 def kernel_layout(R: int, partial: bool, group: int) -> Tuple[Optional[str], int, int]:
     """``(layout, shared-memory bytes, the card's per-block limit)`` that
     kernel K1 takes on the current card for R patches: "warp" (one warp a
-    pair), "block" (one block a pair, R too large for 8 pairs a block),
-    "group" (one block a group of pairs), or None when no layout fits."""
+    pair, R plus the dustbin at most 83), "block" (one block a pair, to 239
+    on a 227 KB card), "group" (one block a group of pairs), or None when no
+    layout fits."""
     layout, smem, limit = ctypes.c_int(), ctypes.c_longlong(), ctypes.c_int()
     fn = native.launcher("sinkhorn_score", "sinkhorn_score_plan", _PLAN_ARGS)
     native.check(fn(R, int(partial), group, ctypes.byref(layout), ctypes.byref(smem),

@@ -49,10 +49,12 @@ def filter_threshold_plain(flat: torch.Tensor, k: int, iters: int = 40) -> torch
 def filter_threshold(flat: torch.Tensor, k: int, iters: int = 40) -> torch.Tensor:
     """:func:`filter_threshold_plain`, as CUDA kernel K2 for a CUDA tensor.
 
-    The output is bit-identical to the plain version: the kernel runs the
-    same bisection with the same f32 arithmetic and exact integer counts.
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (``filter_threshold.launches`` counts the launches).
+    The output is bit-identical to the plain version: the kernel selects
+    each row's k-th smallest value exactly (radix select on the floats'
+    order-preserving integer images) and replays the bisection's ``iters``
+    steps on it with the same f32 arithmetic.  A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel (``filter_threshold.launches``
+    counts the calls).
     """
     if flat.device.type == "cpu":
         return filter_threshold_plain(flat, k, iters)
@@ -64,15 +66,19 @@ def filter_threshold(flat: torch.Tensor, k: int, iters: int = 40) -> torch.Tenso
             f"{tuple(flat.shape)} {flat.dtype}"
         )
     B, N = flat.shape
+    if B > 65535:
+        raise ValueError(f"filter_threshold: at most 65535 rows, got {B}")
     out = torch.empty_like(flat)
-    state = torch.empty((B, 6), dtype=torch.int32, device=flat.device)
+    words = native.launcher("filter_threshold", "filter_threshold_scratch_words", [])()
+    # per row: the three digit histograms and the row's state, zeroed by the kernel
+    scratch = torch.empty((B, words), dtype=torch.int32, device=flat.device)
     fn = native.launcher("filter_threshold", "filter_threshold_launch", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ])
     stream = torch.cuda.current_stream(flat.device).cuda_stream
     native.check(
-        fn(flat.data_ptr(), out.data_ptr(), state.data_ptr(), B, N, k, iters, stream),
+        fn(flat.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, N, k, iters, stream),
         "filter_threshold",
     )
     filter_threshold.launches += 1
