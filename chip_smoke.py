@@ -14,8 +14,9 @@ seeded generator:
   * Swin-T training: train_baseline --arch swin_normalize (full Swin-T at
     224 px, f32) for 3 steps at batch 112 and one in-train evaluation, with
     the window-attention kernels on: K4a (packed, the default variant)
-    forward and backward; then one step and an evaluation batch with the
-    batched variant, K4b;
+    forward and backward, reached through the qkv entry that reads the
+    model's projection in place; then one step and an evaluation batch with
+    the batched variant, K4b;
   * DeiT-S evaluation: test_diml_vit (full DeiT-S with embed_dim 128 at
     224 px, --grid_size 14 so R = 196 rerank patches, exact top-100, full
     OT, 128 synthetic images) with the qk method, carried by K1's
@@ -683,7 +684,7 @@ def switched(settings):
             setattr(m, n, val)
 
 
-def ab_and_profile(torch, tag, args, variants, order, profiled, port_kernels):
+def ab_and_profile(torch, tag, args, variants, order, profiled, port_kernels, top=15):
     """Warm train steps at ``args``'s configuration under each of
     ``variants`` (label -> module settings, see :func:`switched`) in the
     turns of ``order``, each turn 3 timed steps after a warm-up, with its
@@ -728,7 +729,7 @@ def ab_and_profile(torch, tag, args, variants, order, profiled, port_kernels):
                 step()
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-        report_profile(f"{tag}-profile", f"one warm step, {label},", wall, prof, top=15,
+        report_profile(f"{tag}-profile", f"one warm step, {label},", wall, prof, top=top,
                        port_kernels=port_kernels)
 
 
@@ -834,7 +835,8 @@ def phase_k4(torch):
     shapes at batch 112 (T=49, D=32; the real shifted-window masks), with
     dbias/dadd checked for the same bits on a second run, and the yardstick
     of scaled_dot_product_attention over the same windows with the bias and
-    mask expanded to a float attn_mask."""
+    mask expanded to a float attn_mask; then the model's qkv entry at the
+    same shapes (:func:`k4_qkv_entry`)."""
     import torch.nn.functional as F
     from torch.nn.attention import sdpa_kernel
 
@@ -869,7 +871,7 @@ def phase_k4(torch):
                 F.scaled_dot_product_attention(q4, k4, v4, attn_mask=full_mask, scale=scale),
                 (q4, k4, v4), do.view(G * nW, 1, T, D)), reps=5)
         del q4, k4, v4, o4, full_mask
-        fwd_bwd = {}
+        fwd_bwd, bounds = {}, {}
 
         qkv_bytes = q.numel() * 4
         ops_fwd = 4 * T * T * D * G * nW
@@ -909,6 +911,7 @@ def phase_k4(torch):
                          else (bias.numel() + mask.numel()) * 4)
             fwd_bound = bound(4 * qkv_bytes + add_bytes, ops_fwd)
             bwd_bound = bound(7 * qkv_bytes + add_bytes + operands[3].numel() * 4, ops_bwd)
+            bounds[name] = fwd_bound, bwd_bound
             del out, ref, grads, again, ref_grads, leaves, ref_leaves
             say(f"[{name} fwd, {stage}: G={G} nW={nW} T={T} D={D}] max_abs_err={fwd_err:.3e} "
                 f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={sdpa_fwd:.4f} "
@@ -938,7 +941,103 @@ def phase_k4(torch):
             + ", ".join(f"{n} fwd+bwd {t:.4f} ms" for n, t in fwd_bwd.items()))
         del q, k, v, do, add
         torch.cuda.empty_cache()
+        k4_qkv_entry(torch, stage, nW, H, res, B, T, D, bounds, gen)
     return entries["K4a packed"], entries["K4b batched"]
+
+
+def k4_qkv_entry(torch, stage, nW, H, res, B, T, D, bounds, gen):
+    """The model's entry, swin_attention_qkv, on a (B nW, T, 3 H D)
+    projection as models/swin.py gives it, in both variants: forward and
+    backward against its plain version at K4's tolerances, dbias the same
+    bits on a rerun, times beside the bound (the same bytes as the
+    contracts') and SDPA on the same strided q, k, v; then two forwards and
+    backwards under the profiler, whose kernel list must hold no copy, fill
+    or add of q, k, v, o or their gradients (the batched variant runs the
+    port's three kernels and nothing else; the packed one adds the
+    additive term's own small kernels)."""
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.nn.attention import sdpa_kernel
+    from torch.profiler import ProfilerActivity, profile
+
+    from vit_reranking_tpu_torch.models.swin import _shift_attn_mask
+    from vit_reranking_tpu_torch.ops import swin_attention as swa
+
+    Bw, C = B * nW, H * D
+    scale = D ** -0.5
+    qkv = torch.randn(Bw, T, 3 * C, device="cuda", generator=gen)
+    do = torch.randn(Bw, T, C, device="cuda", generator=gen)
+    bias = torch.randn(H, T, T, device="cuda", generator=gen)
+    mask = torch.from_numpy(_shift_attn_mask(res, res, 7, 3)).cuda()
+    q4, k4, v4 = qkv.view(Bw, T, 3, H, D).permute(2, 0, 3, 1, 4)
+    full_mask = bias[None] + mask.repeat(B, 1, 1)[:, None]
+    backend = sdpa_backend(q4[:8], k4[:8], v4[:8], attn_mask=full_mask[:8], scale=scale)
+    with sdpa_kernel([backend]):
+        sdpa_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=full_mask, scale=scale), reps=5)
+    del q4, k4, v4, full_mask
+    for packed in (True, False):
+        name = "K4a packed" if packed else "K4b batched"
+        fwd_bound, bwd_bound = bounds[name]
+        with switched([(swa, "SWIN_KERNEL_PACKED", packed)]):
+            def run(entry):
+                leaves = [qkv.clone().requires_grad_(), bias.clone().requires_grad_()]
+                out = entry(*leaves, mask, scale, H, n_windows=nW)
+                return leaves, out
+
+            leaves, out = run(swa.swin_attention_qkv)
+            grads = torch.autograd.grad(out, leaves, do, retain_graph=True)
+            again = torch.autograd.grad(out, leaves, do, retain_graph=True)
+            ref_leaves, ref = run(swa.swin_attention_qkv_plain)
+            ref_grads = torch.autograd.grad(ref, ref_leaves, do, retain_graph=True)
+            torch.cuda.synchronize()
+            fwd_err = float((out - ref).abs().max())
+            rel = {n: float((a - b).abs().max() / b.abs().max())
+                   for n, a, b in zip(("dqkv", "dbias"), grads, ref_grads)}
+            same_bits = torch.equal(grads[1], again[1])
+            with torch.no_grad():
+                ms = cuda_ms(torch, lambda: swa.swin_attention_qkv(qkv, bias, mask, scale, H,
+                                                                   n_windows=nW), reps=10)
+                plain_ms = cuda_ms(torch, lambda: swa.swin_attention_qkv_plain(
+                    qkv, bias, mask, scale, H, n_windows=nW), reps=3)
+            bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(out, leaves, do,
+                                                                retain_graph=True), reps=10)
+            bwd_plain_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+                ref, ref_leaves, do, retain_graph=True), reps=3)
+            del ref, ref_grads, ref_leaves, grads, again
+            say(f"[{name} qkv entry, {stage}: qkv ({Bw}, {T}, {3 * C}) H={H}] "
+                f"max_abs_err={fwd_err:.3e} rel_err "
+                + " ".join(f"{n}={e:.3e}" for n, e in rel.items())
+                + f" same_bits_on_rerun={same_bits} fwd_ms={ms:.4f} "
+                f"(plain {plain_ms:.4f}, sdpa {sdpa_ms:.4f}) bwd_ms={bwd_ms:.4f} "
+                f"(plain {bwd_plain_ms:.4f}) bound_ms={fwd_bound[0]:.5f} / {bwd_bound[0]:.5f}")
+            if not (fwd_err <= K4_FWD_TOL and all(e <= K4_GRAD_RTOL for e in rel.values())
+                    and same_bits):
+                raise AssertionError(f"{name} qkv entry, {stage}: {fwd_err}, {rel}, {same_bits}")
+            leaves = [qkv.clone().requires_grad_(), bias.clone().requires_grad_()]
+            torch.cuda.synchronize()
+            # two passes: the tracer can miss the first launch of its window
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(2):
+                    out = swa.swin_attention_qkv(*leaves, mask, scale, H, n_windows=nW)
+                    torch.autograd.grad(out, leaves, do)
+                torch.cuda.synchronize()
+            del leaves, out
+        kernels = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                total, count = kernels.get(e.name, (0.0, 0))
+                kernels[e.name] = (total + e.time_range.end - e.time_range.start, count + 1)
+        say(f"[{name} qkv entry, {stage}] every device kernel of two forwards and backwards: "
+            + "; ".join(f"{n[:70]} {c}x {t / 1e3:.3f} ms"
+                        for n, (t, c) in sorted(kernels.items(), key=lambda kv: -kv[1][0])))
+        base = sorted(m.group(1) if (m := re.search(r"::(\w+)[<(]", n)) else n for n in kernels)
+        if not packed and base != ["bwd_kernel", "fwd_kernel", "reduce_bias_kernel"]:
+            raise AssertionError(f"the batched qkv entry ran other kernels: {list(kernels)}")
+        if not {"fwd_kernel", "bwd_kernel"} <= set(base):
+            raise AssertionError(f"{name} qkv entry: the profile shows no K4 launch")
+    del qkv, do
+    torch.cuda.empty_cache()
 
 
 SWIN_TRAIN_ARGS = [
@@ -1001,7 +1100,8 @@ def phase_swin_ab(torch):
                    variants, ("K4a packed", "K4b batched", "off (materialising)",
                               "off (materialising)", "K4b batched", "K4a packed"),
                    ("K4a packed", "K4b batched"),
-                   ("fwd_kernel", "bwd_kernel", "reduce_add_kernel", "reduce_bias_kernel"))
+                   ("fwd_kernel", "bwd_kernel", "reduce_add_kernel", "reduce_bias_kernel"),
+                   top=40)
 
 
 def phase_swin_reference(torch):

@@ -1,5 +1,5 @@
 """Static guard: the PyTorch port and its card scripts (chip_smoke.py,
-chip_k3_variants.py, chip_k1k2_variants.py) import no JAX, no Flax, nothing
+chip_k3_variants.py, chip_k1k2_variants.py, chip_k4_variants.py) import no JAX, no Flax, nothing
 of the JAX package, and no PIL at module level.
 
 The machine with the card has none of JAX, Flax or PIL, so any such import
@@ -14,7 +14,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-SCRIPTS = ("chip_smoke", "chip_k3_variants", "chip_k1k2_variants")
+SCRIPTS = ("chip_smoke", "chip_k3_variants", "chip_k1k2_variants", "chip_k4_variants")
 FILES = sorted((ROOT / "vit_reranking_tpu_torch").rglob("*.py")) + [
     ROOT / f"{name}.py" for name in SCRIPTS]
 BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "vit_reranking_tpu")

@@ -13,9 +13,12 @@ edge rows included; kernel K3's forward
 (3xTF32 tensor-core products) matches its plain version to 1e-5 and its dq,
 dk, dv match autograd through the plain version to 1e-4 of their largest
 magnitude (online softmax and tiled sums in another order), the same bits
-from run to run.  Kernels K4a and K4b (Swin window attention)
-hold the same bounds against their plain versions, dbias/dadd included, and
-give bitwise the same dbias/dadd from run to run (fixed-order sums).
+from run to run.  Kernels K4a and K4b (Swin window attention,
+3xTF32 tensor-core products) hold the same bounds against their plain
+versions, dbias/dadd included, at T 16 to 64 and D 8 to 64, through both
+contracts and through the qkv entry that reads the model's projection in
+place, and give bitwise the same dbias/dadd from run to run (fixed-order
+sums).
 """
 
 import numpy as np
@@ -366,16 +369,28 @@ def _swin_run(fn, q, k, v, do, bias, mask, scale):
     return out, torch.autograd.grad(out, args, do)
 
 
+# Swin-T's stages 0 and 2 at batch 112 (their shifted-window masks), and
+# windows of 16 and 64 tokens at head dims 8 to 64, masked and not
+SWIN_CASES = [(336, 64, 49, 32, 3, True), (1344, 4, 49, 32, 12, True),
+              (24, 4, 16, 8, 3, True), (12, 4, 49, 32, 4, False), (8, 4, 16, 16, 2, False),
+              (8, 4, 64, 64, 2, True), (6, 4, 64, 16, 3, False), (8, 8, 16, 64, 2, True)]
+SWIN_IDS = ["stage0", "stage2", "ragged-T16-D8", "T49-nomask", "T16-D16", "T64-D64",
+            "T64-D16-nomask", "T16-D64"]
+
+
+def _swin_mask(cuda, nW, T, mask):
+    """Swin-T's shifted-window mask where the shape is a Swin-T stage's."""
+    if mask is not None and T == 49:
+        res = {64: 56, 16: 28, 4: 14}[nW]
+        return torch.from_numpy(_shift_attn_mask(res, res, 7, 3)).to(cuda)
+    return mask
+
+
 @pytest.mark.parametrize("packed", [True, False], ids=["K4a-packed", "K4b-batched"])
-@pytest.mark.parametrize(
-    "G,nW,T,D,H,with_mask",
-    [(336, 64, 49, 32, 3, True), (24, 4, 16, 8, 3, True), (12, 4, 49, 32, 4, False)],
-    ids=["stage0", "ragged-T16-D8", "T49-nomask"],
-)
+@pytest.mark.parametrize("G,nW,T,D,H,with_mask", SWIN_CASES, ids=SWIN_IDS)
 def test_swin_kernels_match_plain_on_card(cuda, packed, G, nW, T, D, H, with_mask):
     q, k, v, do, bias, mask = _swin_inputs(cuda, G, nW, T, D, H, with_mask)
-    if mask is not None and T == 49:  # Swin-T's stage-0 shifted-window mask
-        mask = torch.from_numpy(_shift_attn_mask(56, 56, 7, 3)).to(cuda)
+    mask = _swin_mask(cuda, nW, T, mask)
     fn = swa.swin_window_attention_packed if packed else swa.swin_window_attention
     scale = D ** -0.5
     before = (fn.fwd_launches, fn.bwd_launches)
@@ -389,6 +404,42 @@ def test_swin_kernels_match_plain_on_card(cuda, packed, G, nW, T, D, H, with_mas
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()), name
     _, again = _swin_run(fn, q, k, v, do, bias, mask, scale)
     assert torch.equal(again[3], grads[3])  # dbias the same bits from run to run
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["K4a-packed", "K4b-batched"])
+@pytest.mark.parametrize("G,nW,T,D,H,with_mask", SWIN_CASES, ids=SWIN_IDS)
+def test_swin_qkv_entry_matches_plain_on_card(cuda, monkeypatch, packed, G, nW, T, D, H,
+                                              with_mask):
+    """The qkv entry reads the (B nW, T, 3 H D) projection in place and
+    writes (B nW, T, H D) and one dqkv: against its plain version, the
+    launches counted once each way, dbias the same bits on a rerun."""
+    monkeypatch.setattr(swa, "SWIN_KERNEL_PACKED", packed)
+    _, _, _, _, bias, mask = _swin_inputs(cuda, H, nW, T, D, H, with_mask)
+    mask = _swin_mask(cuda, nW, T, mask)
+    Bw, C = (G // H) * nW, H * D
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    qkv = torch.randn(Bw, T, 3 * C, device=cuda, generator=gen)
+    do = torch.randn(Bw, T, C, device=cuda, generator=gen)
+    scale = D ** -0.5
+    fn = swa.swin_window_attention_packed if packed else swa.swin_window_attention
+
+    def run(entry):
+        leaves = [t.clone().requires_grad_() for t in (qkv, bias)]
+        out = entry(*leaves, mask, scale, H, n_windows=nW)
+        return out, torch.autograd.grad(out, leaves, do)
+
+    before = (fn.fwd_launches, fn.bwd_launches)
+    out, grads = run(swa.swin_attention_qkv)
+    ref, ref_grads = run(swa.swin_attention_qkv_plain)
+    torch.cuda.synchronize()
+    assert (fn.fwd_launches, fn.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert out.shape == (Bw, T, C) and out.is_contiguous()
+    assert float((out - ref).abs().max()) <= 1e-5
+    for a, b, name in zip(grads, ref_grads, ("dqkv", "dbias")):
+        assert torch.isfinite(a).all(), name
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max()), name
+    _, again = run(swa.swin_attention_qkv)
+    assert torch.equal(again[1], grads[1])  # dbias the same bits from run to run
 
 
 def test_packed_kernel_dadd_is_bitwise_repeatable_and_block_diagonal(cuda):
@@ -413,6 +464,13 @@ def test_packed_kernel_dadd_is_bitwise_repeatable_and_block_diagonal(cuda):
     off = torch.ones(P, P, device=cuda) - torch.eye(P, device=cuda)
     off = off.repeat_interleave(49, 0).repeat_interleave(49, 1).bool()
     assert torch.count_nonzero(first[:, :, off]) == 0
+
+
+def test_swin_qkv_entry_refuses_misaligned_rows(cuda):
+    qkv = torch.zeros(8, 16, 3 * 16 + 1, device=cuda)[:, :, 1:]  # rows off 16 bytes
+    with pytest.raises(ValueError):
+        swa.swin_attention_qkv(qkv, torch.zeros(2, 16, 16, device=cuda), None, 0.1, 2,
+                               n_windows=4)
 
 
 def test_swin_kernels_refuse_what_they_do_not_take(cuda):

@@ -142,8 +142,8 @@ def test_small_forward_matches_jax(small, route):
             mp.setattr(jax_swa, "SWIN_KERNEL_PACKED", route == "packed")
             mp.setattr(swin, "USE_SWIN_WINDOW_KERNEL", True)
             mp.setattr(swa, "SWIN_KERNEL_PACKED", route == "packed")
-            real = swin.swin_attention
-            mp.setattr(swin, "swin_attention",
+            real = swin.swin_attention_qkv
+            mp.setattr(swin, "swin_attention_qkv",
                        lambda *a, **kw: calls.append(real(*a, **kw)) or calls[-1])
         ref = _outputs(jm.apply(variables, jnp.asarray(x), train=False))
         tm = _small_port(variables).eval()
@@ -259,8 +259,9 @@ def three_steps(small):
     mp = pytest.MonkeyPatch()
     mp.setattr(swin, "USE_SWIN_WINDOW_KERNEL", True)
     calls = []
-    real = swin.swin_attention
-    mp.setattr(swin, "swin_attention", lambda *a, **kw: calls.append(real(*a, **kw)) or calls[-1])
+    real = swin.swin_attention_qkv
+    mp.setattr(swin, "swin_attention_qkv",
+               lambda *a, **kw: calls.append(real(*a, **kw)) or calls[-1])
     try:
         tm = _small_port(variables)
         tl = load_jax_params(MarginLoss(_margin_opt(), _FixedMiner()), {"params": loss_params})

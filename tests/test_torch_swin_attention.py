@@ -4,7 +4,10 @@ kernels in interpret mode), case by case as tests/test_swin_attention_pallas.py
 holds the JAX kernels against XLA: forward parity for both contracts, masked
 and unmasked, at stage-1-like, stage-2-like and tiny shapes (atol 2e-5);
 dq, dk, dv and dbias (atol 1e-4, the JAX test's tolerances); the packed
-additive term; the dispatcher's layout and its None returns.
+additive term; the dispatcher's layout and its None returns; the qkv entry
+(swin_attention_qkv, which reads the model's qkv projection) against the JAX
+dispatcher fed the same projection, forward and the gradients of qkv and
+bias (atol 1e-5).
 
 On the CPU the port runs each contract's plain version, differentiated by
 autograd; the CUDA kernels are held against those plain versions on the card
@@ -194,3 +197,65 @@ def test_wrappers_take_plain_versions_on_cpu_and_refuse_other_devices():
         swa.swin_window_attention(meta, meta, meta, bias.to("meta"), None, 0.3)
     with pytest.raises(ValueError):
         swa.swin_window_attention_packed(meta, meta, meta, bias.to("meta"), None, 0.3)
+
+
+def _qkv_case(rng, B, nW, H, T, D, with_mask):
+    Bw, C = B * nW, H * D
+    qkv = rng.standard_normal((Bw, T, 3 * C)).astype(np.float32)
+    bias = rng.standard_normal((H, T, T)).astype(np.float32)
+    mask = None
+    if with_mask:
+        m = rng.integers(0, 2, size=(nW, T, 1))
+        mask = np.where(m == m.transpose(0, 2, 1), 0.0, -100.0).astype(np.float32)
+    return qkv, bias, mask
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["packed", "batched"])
+@pytest.mark.parametrize("with_mask", [False, True], ids=["nomask", "mask"])
+def test_qkv_entry_matches_jax(packed, with_mask):
+    """swin_attention_qkv on the model's (Bw, T, 3C) projection against the
+    JAX dispatcher given the same projection split as
+    vit_reranking_tpu/models/swin.py:154 splits it (kernels in interpret
+    mode): the output as proj takes it and the gradients of qkv and bias."""
+    rng = np.random.default_rng(7)
+    B, nW, H, T, D = 2, 4, 2, 16, 8
+    Bw, C = B * nW, H * D
+    qkv, bias, mask = _qkv_case(rng, B, nW, H, T, D, with_mask)
+    w = rng.standard_normal((Bw, T, C)).astype(np.float32)
+    scale = D ** -0.5
+
+    def jout(x, b):
+        q, k, v = x.reshape(Bw, T, 3, H, D).transpose(2, 0, 3, 1, 4)
+        out = jswa.swin_attention(q, k, v, b, _j(mask), scale, n_windows=nW, interpret=True)
+        return out.transpose(0, 2, 1, 3).reshape(Bw, T, C)
+
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setattr(swa, "SWIN_KERNEL_PACKED", packed)
+        mp.setattr(jswa, "SWIN_KERNEL_PACKED", packed)
+        ref, jgrads = jax.value_and_grad(
+            lambda x, b: (lambda o: (jnp.sum(o * jnp.asarray(w)), o))(jout(x, b)),
+            argnums=(0, 1), has_aux=True)(jnp.asarray(qkv), jnp.asarray(bias))
+        ref = ref[1]
+        tq, tb = (torch.from_numpy(a).requires_grad_() for a in (qkv, bias))
+        out = swa.swin_attention_qkv(tq, tb, _t(mask), scale, H, n_windows=nW)
+        grads = torch.autograd.grad((out * torch.from_numpy(w)).sum(), (tq, tb))
+    finally:
+        mp.undo()
+    assert out.shape == (Bw, T, C)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), atol=1e-5)
+    for a, b, name in zip(grads, jgrads, ("dqkv", "dbias")):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5, err_msg=name)
+
+
+def test_qkv_entry_returns_none_where_swin_attention_does():
+    """One window an image, D not a multiple of 8, and a window beyond the
+    card kernel's 64 tokens: the qkv entry returns None, as swin_attention
+    does for the same q, k, v."""
+    rng = np.random.default_rng(8)
+    for B, nW, H, T, D in ((2, 1, 2, 49, 32), (2, 4, 2, 49, 12), (2, 4, 1, 81, 8)):
+        qkv, bias, _ = _qkv_case(rng, B, nW, H, T, D, False)
+        tq, tb = torch.from_numpy(qkv), torch.from_numpy(bias)
+        q, k, v = tq.reshape(B * nW, T, 3, H, D).permute(2, 0, 3, 1, 4)
+        assert swa.swin_attention(q, k, v, tb, None, 0.1, n_windows=nW) is None
+        assert swa.swin_attention_qkv(tq, tb, None, 0.1, H, n_windows=nW) is None

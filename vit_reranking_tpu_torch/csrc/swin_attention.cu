@@ -1,5 +1,6 @@
 // Swin window attention, softmax(q k^T * scale + add) v per window, forward
-// and backward, on Hopper (sm_90a), in f32.
+// and backward, on Hopper (sm_90a), f32 in and out, products on the tensor
+// cores.
 //
 // Replaces the TPU kernels of vit_reranking_tpu/ops/swin_attention_pallas.py:
 //   K4b, the batched contract: _fwd_kernel (:77, with _attn_probs :63,
@@ -22,57 +23,234 @@
 // f32, and so are those entries of ds and dadd.  Here each (T, T) window
 // problem is solved on its own: for the packed contract the core reads
 // only the diagonal (T, T) blocks of add, and writes zeros to dadd's other
-// entries, which is the same function without the P-fold waste.  The two
-// contracts differ only in where the additive term is read and where its
-// gradient goes.  The packed layout (G, nblk, P T, D) is the batched one
-// (G, nW, T, D) in memory.
+// entries, which is the same function without the P-fold waste.
 //
-// Design.  One block of 256 threads (a 16 x 16 grid, tx = tid % 16,
-// ty = tid / 16) owns one (window, head) and a run of `chunk` images of that
-// head.  Every per-window operand lives in shared memory, rows padded to 64
-// with zeros: q, k, v (and dO in the backward) row-major at 64 x (D + 4),
-// p (and ds) row-major at 64 x 68; the additive term of the (window, head)
-// is read once into registers.  The next image's tiles are copied in
-// (cp.async, a second buffer) while the block computes this one.  Thread
-// (ty, tx) owns score rows 4 ty + i and
-// columns tx + 16 j; a row's 16 owners are one half-warp, so row max and row
-// sums are shuffles.  The products are register tiles fed by 16-byte
-// shared-memory loads (4 rows or 4 steps of the contraction at a time),
-// so that the inner loops are bound by the f32 units rather than by shared
-// memory; warps whose rows all lie past T skip the products.
-//   forward: s = q k^T * scale + add, softmax, o = p v; scores and
-//     probabilities never reach device memory.
-//   backward: p is recomputed from q, k and add (nothing is saved but the
-//     inputs, as on the TPU); dp = dO v^T, ds = p (dp - rowsum(dp p)),
-//     dq = ds k * scale, dk = ds^T q * scale, dv = p^T dO.  The block sums ds
-//     over its images in registers, in order, and writes one partial per
-//     (run of images, head, window).  The TPU kernel summed dbias/dadd in an
-//     output block revisited along its sequential grid; blocks here run in
-//     no order, so a second launch sums the partials in a fixed order (no
-//     float atomics: the result is the same from run to run) into dbias, or
-//     into dadd's diagonal blocks with zeros elsewhere.
+// Operands are read and written through strides: element (image b, window
+// w, head h, token t, dim d) of q, k, v lies at q + b sb + w sw + h sh +
+// t st + d, with one set of strides for q, k, v, one for o, one for dO and
+// one for dq, dk, dv.  Contiguous (G, nW, T, D) strides give the two
+// contracts; the model's qkv projection (B nW, T, 3 H D) is read in place,
+// and o (B nW, T, H D) and dq, dk, dv (slices of one (B nW, T, 3 H D)
+// tensor) are written in the layouts its two Linears use, so no copy of q,
+// k, v, o or their gradients exists around the kernel.
 //
 // What bounds it: bytes.  At Swin-T stage 0 and batch 112 (G = 336,
 // nW = 64, T = 49, D = 32) the forward reads q, k, v and writes o, 4 x 135
-// MB, 0.16 ms at 3.35 TB/s, against 6.6 GFLOP, 0.10 ms at the f32 rate; the
-// backward moves 7 such tensors.  The SIMT f32 products (no tensor cores:
-// the f32 path must not round to TF32) run on 64-row padded tiles, up to
-// 1.7x the work of T = 49, which keeps the code simple at some cost in
-// operations.  Supported: 2 <= T <= 64, D a multiple of 8 up to 64.
+// MB, 0.16 ms at 3.35 TB/s; the backward moves 7 such tensors, 0.28 ms.
+// The forward's 6.6 GFLOP (4 T^2 D a window), as three TF32 products on
+// padded tiles, is 30 GFLOP of mma.sync, about 0.1 ms at the 300 TFLOP/s
+// mma.sync reaches on this card; the backward's 2.5 times that.
+//
+// Design.
+//   Products.  Every product runs on the tensor cores (mma.sync m16n8k8
+//   TF32) as three TF32 products, as in kv_attention.cu: hi = tf32(x)
+//   (round to nearest, ties away), lo = x - hi, a b ~ hi hi + hi lo + lo hi
+//   with the small terms in their own accumulator chain (mma's accumulator
+//   does not round to nearest), so f32 accuracy survives.  Every product
+//   here is one fresh pair of chains of at most 8 k-steps.
+//   Tiles.  A window is padded to 16 W rows (W warps: 4 for T = 49, 64
+//   rows) and 8 NC columns (NC n-tiles: 7 for T = 49, 56 columns), not to
+//   64 x 64.  Warp i owns q rows 16 i .. 16 i + 15: its scores, softmax
+//   and probabilities stay in registers, and P feeds P V (and dS feeds
+//   dS K) from the accumulator registers, its columns 2t, 2t + 1 taken as
+//   k = t, t + 4 with the B operand's rows read in the same order.
+//   Occupancy.  One block of W warps owns one (window, head) and walks a
+//   run of images, so its additive term is read once into registers.  In
+//   the forward the next image's q, k, v come in by cp.async into a second
+//   buffer while this one is computed: 51 KB a block at D = 32, 4 blocks
+//   (16 warps) an SM.  The backward would need 104 KB and 240 registers a
+//   thread for the same, 2 blocks an SM; with one buffer (69 KB) and 168
+//   registers it fits 3, whose warps cover the copies better
+//   (kFwdStages, kBwdStages; chip_k4_variants.py times both).  Rows of a
+//   tile are D + 4 floats apart, so fragment loads touch 32 distinct banks.
+//   Backward.  p is recomputed from q, k and add (nothing is saved but
+//   the inputs, as on the TPU); dp = dO v^T, ds = p (dp - rowsum(dp p)),
+//   dq = ds k scale from registers; p and ds go to shared memory once, and
+//   warp i then owns kv rows 16 i .. of dv = p^T dO and dk = ds^T q scale.
+//   The block sums ds over its images in registers, in order, and writes
+//   one partial per (run of images, head, window); blocks run in no order,
+//   so a second launch sums the partials in a fixed order (no float
+//   atomics: the result is the same from run to run) into dbias, or into
+//   dadd's diagonal blocks with zeros elsewhere.
+//
+// Supported: 2 <= T <= 64, D a multiple of 8 up to 64, every stride a
+// multiple of 4 floats and every operand 16-byte aligned.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
-constexpr int kThreads = 256;  // a 16 x 16 grid of threads: tx = tid % 16, ty = tid / 16
-constexpr int kRows = 64;      // window tokens, padded
-constexpr int kSub = 4;        // thread (ty, tx) owns rows 4 ty + i and columns tx + 16 j
-constexpr int kPS = kRows + 4; // row stride of the p and ds tiles
+// ---- tensor-core products in 3xTF32 (as in kv_attention.cu) ---------------
 
-// Where a call's operands are: q, k, v (G, nW, T, D) with G = H * B; the
-// additive term of head h and window w starts at
-//   add + h * add_h + (w / P) * add_blk + (w % P) * (T * lda + T)
+struct FragA {  // a 16 x 8 A operand, split
+  uint32_t hi[4], lo[4];
+};
+struct FragB {  // an 8 x 8 B operand, split
+  uint32_t hi[2], lo[2];
+};
+
+// hi = x rounded to TF32, to nearest with ties away from zero (the rounding
+// of cvt.rna.tf32.f32, in two integer instructions); lo = x - hi (exact),
+// whose low 13 bits the tensor core drops.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// a b as big += hi hi and small += lo hi + hi lo, two chains that the
+// caller adds in f32 when the sum is complete.
+__device__ __forceinline__ void mma3(float (&big)[4], float (&small)[4], const FragA& a,
+                                     const FragB& b) {
+  mma_tf32(small, a.lo, b.hi[0], b.hi[1]);
+  mma_tf32(small, a.hi, b.lo[0], b.lo[1]);
+  mma_tf32(big, a.hi, b.hi[0], b.hi[1]);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[j][e] = 0.0f;
+}
+
+// Fragments of shared tiles, row-major with S floats a row; g = lane / 4,
+// t = lane % 4.  The A operand at rows r0.., columns c0..: a0 (g, t),
+// a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4).
+template <int S>
+__device__ __forceinline__ FragA load_a(const float* s, int r0, int c0, int g, int t) {
+  const float* p = s + (r0 + g) * S + c0 + t;
+  FragA f;
+  split(p[0], f.hi[0], f.lo[0]);
+  split(p[8 * S], f.hi[1], f.lo[1]);
+  split(p[4], f.hi[2], f.lo[2]);
+  split(p[8 * S + 4], f.hi[3], f.lo[3]);
+  return f;
+}
+
+// The A operand of a product with a transposed tile, A[r][c] = s[c][r],
+// with k in the order acc_as_a gives it (k = t is column 2t, k = t + 4
+// column 2t + 1): a0 (g, 2t), a1 (g + 8, 2t), a2 (g, 2t + 1), a3 (g + 8,
+// 2t + 1).  With S = 4 (mod 16) the warp touches 32 distinct banks.
+template <int S>
+__device__ __forceinline__ FragA load_at(const float* s, int r0, int c0, int g, int t) {
+  const float* p = s + (c0 + 2 * t) * S + r0 + g;
+  FragA f;
+  split(p[0], f.hi[0], f.lo[0]);
+  split(p[8], f.hi[1], f.lo[1]);
+  split(p[S], f.hi[2], f.lo[2]);
+  split(p[S + 8], f.hi[3], f.lo[3]);
+  return f;
+}
+
+// The B operand of a product with a transposed tile (x y^T): element (k, n)
+// is s[n0 + n][k0 + k], so b0 = s[n0 + g][k0 + t], b1 = s[n0 + g][k0 + t + 4].
+template <int S>
+__device__ __forceinline__ FragB load_b_nk(const float* s, int n0, int k0, int g, int t) {
+  const float* p = s + (n0 + g) * S + k0 + t;
+  FragB f;
+  split(p[0], f.hi[0], f.lo[0]);
+  split(p[4], f.hi[1], f.lo[1]);
+  return f;
+}
+
+// The B operand of a product with a tile as it is (x y), element (k, n) is
+// s[k0 + k][n0 + n], with k in the order acc_as_a and load_at give it: b0
+// is row k0 + 2t, b1 row k0 + 2t + 1.
+template <int S>
+__device__ __forceinline__ FragB load_b_kn(const float* s, int k0, int n0, int g, int t) {
+  const float* p = s + (k0 + 2 * t) * S + n0 + g;
+  FragB f;
+  split(p[0], f.hi[0], f.lo[0]);
+  split(p[S], f.hi[1], f.lo[1]);
+  return f;
+}
+
+// An accumulator tile (16 x 8, c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t),
+// c3 (g + 8, 2t + 1)) as the A operand of the next product, its columns
+// 2t and 2t + 1 taken as k = t and t + 4.
+__device__ __forceinline__ FragA acc_as_a(const float (&c)[4]) {
+  FragA f;
+  split(c[0], f.hi[0], f.lo[0]);
+  split(c[2], f.hi[1], f.lo[1]);
+  split(c[1], f.hi[2], f.lo[2]);
+  split(c[3], f.hi[3], f.lo[3]);
+  return f;
+}
+
+// big + small = sum over K k-steps of load_a(k) times load_b(k, n), for N
+// n-tiles, in fresh chains.
+template <int K, int N, typename LoadA, typename LoadB>
+__device__ __forceinline__ void product(float (&big)[N][4], float (&small)[N][4], LoadA load_a,
+                                        LoadB load_b) {
+  zero(big);
+  zero(small);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const FragA a = load_a(k);
+#pragma unroll
+    for (int n = 0; n < N; ++n) mma3(big[n], small[n], a, load_b(k, n));
+  }
+}
+
+// ---- asynchronous tile copies ---------------------------------------------
+
+// 16 bytes from global to shared memory without passing through registers
+// (cp.async); zeros instead when `ok` is false.
+__device__ __forceinline__ void copy16(float* dst, const float* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Start copying a window's (T, D) rows, `st` floats apart, into an R x
+// (DP + 4) shared tile; zeros past row T and column D (D is a multiple of
+// 8, so a 4-float group is all in or all out).
+template <int DP, int R, int kThreads>
+__device__ __forceinline__ void load_tile(float* s, const float* __restrict__ g, long long st,
+                                          int T, int D) {
+  constexpr int SD = DP + 4, C4 = DP / 4;
+  for (int e = threadIdx.x; e < R * C4; e += kThreads) {
+    const int r = e / C4, c = (e % C4) * 4;
+    const bool ok = r < T && c < D;
+    copy16(s + r * SD + c, ok ? g + r * st + c : g, ok);
+  }
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// ---- the window core --------------------------------------------------------
+
+// Where a call's operands are.  The additive term of head h and window w
+// starts at add + h * add_h + (w / P) * add_blk + (w % P) * (T * lda + T)
 // with row stride lda, plus mask + w * T * T when a mask is given.
 struct Geo {
   int B, H, nW, T, D, P, lda;
@@ -80,392 +258,328 @@ struct Geo {
   float scale;
 };
 
-__device__ __forceinline__ float row_max16(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
+// Strides in floats from one image, window, head and token to the next.
+struct Layout {
+  long long b, w, h, t;
+};
 
-__device__ __forceinline__ float row_sum16(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
+// Warps a window takes (16 q rows each) for NC n-tiles of 8 columns.
+template <int NC>
+constexpr int kWarpsOf = (NC + 1) / 2;
 
-__device__ __forceinline__ float lane(const float4& v, int k) {
-  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// W consecutive floats from shared memory (16 / 8-byte loads where W is 4 / 2).
-template <int W>
-__device__ __forceinline__ void load_vec(float (&v)[W], const float* p) {
-  if constexpr (W == 4) {
-    const float4 t = ld4(p);
-    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
-  } else if constexpr (W == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    v[0] = t.x, v[1] = t.y;
-  } else {
+// This thread's entries of the additive term of (head h, window w): rows
+// r0 + g (+ 8), columns 8 j + 2t (+ 1); 0 outside the T x T square.
+template <int NC>
+__device__ __forceinline__ void load_add(float (&a)[NC][4], const float* __restrict__ add,
+                                         const float* __restrict__ mask, const Geo& geo, int h,
+                                         int w, int r0, int g, int t) {
+  const float* A = add + h * geo.add_h + (long long)(w / geo.P) * geo.add_blk +
+                   (long long)(w % geo.P) * ((long long)geo.T * geo.lda + geo.T);
+  const float* M = mask != nullptr ? mask + (long long)w * geo.T * geo.T : nullptr;
 #pragma unroll
-    for (int j = 0; j < W; ++j) v[j] = p[j];
-  }
-}
-
-// 16 bytes from global to shared memory without passing through registers
-// (cp.async); zeros instead when `ok` is false.
-__device__ __forceinline__ void copy16(float* dst, const float* src, bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void copy_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void copy_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Start copying a (T, D) row-major window into a 64 x (DP + 4) shared tile;
-// zeros past row T and column D (D is a multiple of 8, so a 4-float group is
-// all in or all out).
-template <int DP>
-__device__ __forceinline__ void load_window(float* s, const float* __restrict__ g, int T, int D) {
-  constexpr int SD = DP + 4, C4 = DP / 4;
-  for (int e = threadIdx.x; e < kRows * C4; e += kThreads) {
-    const int r = e / C4, c = (e % C4) * 4;
-    const bool ok = r < T && c < D;
-    copy16(s + r * SD + c, ok ? g + r * D + c : g, ok);
-  }
-}
-
-// acc[i][j] += sum_d a[4 ty + i][d] * b[tx + 16 j][d] over 64 x (DP + 4) tiles.
-template <int DP>
-__device__ __forceinline__ void tile_abt(float (&acc)[kSub][kSub], const float* a,
-                                         const float* b, int ty, int tx) {
-  constexpr int SD = DP + 4;
-#pragma unroll 1
-  for (int d = 0; d < DP; d += 4) {
-    float4 av[kSub], bv[kSub];
+  for (int j = 0; j < NC; ++j)
 #pragma unroll
-    for (int i = 0; i < kSub; ++i) av[i] = ld4(a + (4 * ty + i) * SD + d);
-#pragma unroll
-    for (int j = 0; j < kSub; ++j) bv[j] = ld4(b + (tx + 16 * j) * SD + d);
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-#pragma unroll
-      for (int i = 0; i < kSub; ++i)
-#pragma unroll
-        for (int j = 0; j < kSub; ++j) acc[i][j] = fmaf(lane(av[i], k), lane(bv[j], k), acc[i][j]);
-  }
-}
-
-// acc[i][j] += sum_{c < n4} p[4 ty + i][c] * m[c][W tx + j], p 64 x 68, m
-// 64 x (DP + 4); n4 is a multiple of 4 and p's columns past T are zeros.
-template <int DP>
-__device__ __forceinline__ void tile_pm(float (&acc)[kSub][DP / 16], const float* p,
-                                        const float* m, int n4, int ty, int tx) {
-  constexpr int SD = DP + 4, W = DP / 16;
-  for (int c = 0; c < n4; c += 4) {
-    float4 pv[kSub];
-#pragma unroll
-    for (int i = 0; i < kSub; ++i) pv[i] = ld4(p + (4 * ty + i) * kPS + c);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      float mv[W];
-      load_vec<W>(mv, m + (c + k) * SD + W * tx);
-#pragma unroll
-      for (int i = 0; i < kSub; ++i)
-#pragma unroll
-        for (int j = 0; j < W; ++j) acc[i][j] = fmaf(lane(pv[i], k), mv[j], acc[i][j]);
-    }
-  }
-}
-
-// acc[i][j] += sum_{r < n} p[r][4 ty + i] * m[r][W tx + j]: the product with
-// p transposed.
-template <int DP>
-__device__ __forceinline__ void tile_ptm(float (&acc)[kSub][DP / 16], const float* p,
-                                         const float* m, int n, int ty, int tx) {
-  constexpr int SD = DP + 4, W = DP / 16;
-#pragma unroll 4
-  for (int r = 0; r < n; ++r) {
-    const float4 pv = ld4(p + r * kPS + 4 * ty);
-    float mv[W];
-    load_vec<W>(mv, m + r * SD + W * tx);
-#pragma unroll
-    for (int i = 0; i < kSub; ++i)
-#pragma unroll
-      for (int j = 0; j < W; ++j) acc[i][j] = fmaf(lane(pv, i), mv[j], acc[i][j]);
-  }
-}
-
-// The additive term of (head h, window w) at this thread's entries; 0
-// outside the T x T square.
-__device__ __forceinline__ void load_add(float (&a)[kSub][kSub], const float* __restrict__ add,
-                                         const float* __restrict__ mask, const Geo& g, int h,
-                                         int w, int ty, int tx) {
-  const float* A = add + h * g.add_h + (long long)(w / g.P) * g.add_blk +
-                   (long long)(w % g.P) * ((long long)g.T * g.lda + g.T);
-  const float* M = mask != nullptr ? mask + (long long)w * g.T * g.T : nullptr;
-#pragma unroll
-  for (int i = 0; i < kSub; ++i)
-#pragma unroll
-    for (int j = 0; j < kSub; ++j) {
-      const int r = 4 * ty + i, c = tx + 16 * j;
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + g + 8 * (e >> 1), c = 8 * j + 2 * t + (e & 1);
       float x = 0.0f;
-      if (r < g.T && c < g.T) {
-        x = A[(long long)r * g.lda + c];
-        if (M != nullptr) x += M[r * g.T + c];
+      if (r < geo.T && c < geo.T) {
+        x = A[(long long)r * geo.lda + c];
+        if (M != nullptr) x += M[r * geo.T + c];
       }
-      a[i][j] = x;
+      a[j][e] = x;
     }
 }
 
-// s (the raw q k^T) -> the probabilities softmax(s * scale + add) over each
-// row's T columns; 0 outside the T x T square.
-__device__ __forceinline__ void probs(float (&s)[kSub][kSub], const float (&a)[kSub][kSub],
-                                      int T, float scale, int ty, int tx) {
+// s + sl (the raw q k^T) -> exp(s * scale + a - rowmax) over the columns
+// < T, 0 elsewhere; inv[h] = 1 / rowsum for rows r0 + g + 8 h < T, else 0.
+template <int NC>
+__device__ __forceinline__ void softmax_rows(float (&s)[NC][4], const float (&sl)[NC][4],
+                                             const float (&a)[NC][4], int T, float scale,
+                                             int row, int t, float (&inv)[2]) {
+  float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int i = 0; i < kSub; ++i) {
-    const bool row_ok = 4 * ty + i < T;
-    float mx = -INFINITY;
+  for (int j = 0; j < NC; ++j)
 #pragma unroll
-    for (int j = 0; j < kSub; ++j) {
-      const bool ok = row_ok && tx + 16 * j < T;
-      s[i][j] = ok ? s[i][j] * scale + a[i][j] : -INFINITY;
-      mx = fmaxf(mx, s[i][j]);
+    for (int e = 0; e < 4; ++e) {
+      const bool ok = 8 * j + 2 * t + (e & 1) < T;
+      s[j][e] = ok ? (s[j][e] + sl[j][e]) * scale + a[j][e] : -INFINITY;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
     }
-    mx = row_max16(mx);
-    float sum = 0.0f;
+  float sum[2] = {0.0f, 0.0f};
 #pragma unroll
-    for (int j = 0; j < kSub; ++j) {
-      s[i][j] = s[i][j] == -INFINITY ? 0.0f : expf(s[i][j] - mx);
-      sum += s[i][j];
+  for (int h = 0; h < 2; ++h) mx[h] = quad_max(mx[h]);
+#pragma unroll
+  for (int j = 0; j < NC; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = s[j][e] == -INFINITY ? 0.0f : expf(s[j][e] - mx[e >> 1]);
+      sum[e >> 1] += s[j][e];
     }
-    sum = row_sum16(sum);
 #pragma unroll
-    for (int j = 0; j < kSub; ++j) s[i][j] = sum > 0.0f ? s[i][j] / sum : 0.0f;
+  for (int h = 0; h < 2; ++h) {
+    sum[h] = quad_sum(sum[h]);
+    inv[h] = row + 8 * h < T && sum[h] > 0.0f ? 1.0f / sum[h] : 0.0f;
   }
 }
 
-// rows < T, columns < D of acc * mul into a (T, D) row-major window.
-template <int DP>
-__device__ __forceinline__ void store_window(float* __restrict__ g, const float (&acc)[kSub][DP / 16],
-                                             float mul, int T, int D, int ty, int tx) {
-  constexpr int W = DP / 16;
+// Rows row, row + 8 (< T) and columns 8 n + 2t, + 1 (< D) of (big + small)
+// times mul[h] into a window whose rows are `st` floats apart.
+template <int ND>
+__device__ __forceinline__ void store_rows(float* __restrict__ out, long long st,
+                                           const float (&big)[ND][4], const float (&small)[ND][4],
+                                           const float (&mul)[2], int row, int T, int D, int t) {
 #pragma unroll
-  for (int i = 0; i < kSub; ++i) {
-    const int r = 4 * ty + i;
-    if (r >= T) continue;
+  for (int h = 0; h < 2; ++h) {
+    if (row + 8 * h >= T) continue;
+    float* p = out + (row + 8 * h) * st + 2 * t;
 #pragma unroll
-    for (int j = 0; j < W; ++j) {
-      const int c = W * tx + j;
-      if (c < D) g[r * D + c] = acc[i][j] * mul;
-    }
+    for (int n = 0; n < ND; ++n)
+      if (8 * n < D)
+        *reinterpret_cast<float2*>(p + 8 * n) =
+            make_float2((big[n][2 * h] + small[n][2 * h]) * mul[h],
+                        (big[n][2 * h + 1] + small[n][2 * h + 1]) * mul[h]);
   }
 }
 
-template <int DP>
-__device__ __forceinline__ void zero(float (&acc)[kSub][DP / 16]) {
-#pragma unroll
-  for (int i = 0; i < kSub; ++i)
-#pragma unroll
-    for (int j = 0; j < DP / 16; ++j) acc[i][j] = 0.0f;
+// Buffers of tiles a block cycles through: the copies of the next
+// kStages - 1 images are in flight while this one is computed.
+constexpr int kFwdStages = 2;
+constexpr int kBwdStages = 1;
+
+// The next image's copies (if any) are started, then this image's awaited:
+// every iteration commits one group, empty or not, so that the group this
+// iteration needs is always kStages - 1 groups old.
+template <int kStages, typename Fetch>
+__device__ __forceinline__ void next_image(int b, int b0, int b1, float* tiles, int buf,
+                                           Fetch fetch) {
+  const int ahead = b + kStages - 1;
+  if (ahead < b1) fetch(ahead, tiles + ((ahead - b0) % kStages) * buf);
+  copy_commit();
+  copy_wait<kStages - 1>();
+  __syncthreads();  // this image's tiles are in, for every thread
 }
 
-__device__ __forceinline__ void zero(float (&s)[kSub][kSub]) {
-#pragma unroll
-  for (int i = 0; i < kSub; ++i)
-#pragma unroll
-    for (int j = 0; j < kSub; ++j) s[i][j] = 0.0f;
+template <int NC, int DP>
+constexpr size_t fwd_smem() {
+  constexpr int RQ = 16 * kWarpsOf<NC>, RK = 8 * NC;
+  return (size_t)kFwdStages * (RQ + 2 * RK) * (DP + 4) * sizeof(float);
 }
 
-// grid (nW, H, runs of `chunk` images)
-template <int DP>
-__global__ void __launch_bounds__(kThreads, 3)
+template <int NC, int DP>
+constexpr size_t bwd_smem() {
+  constexpr int RQ = 16 * kWarpsOf<NC>, RK = 8 * NC;
+  return ((size_t)kBwdStages * (2 * RQ + 2 * RK) * (DP + 4) + 2 * RQ * (RQ + 4)) * sizeof(float);
+}
+
+// grid (nW, H, runs of `chunk` images), 32 W threads
+template <int NC, int DP>
+__global__ void __launch_bounds__(32 * kWarpsOf<NC>, DP <= 32 ? 4 : 2)
     fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ add,
-               const float* __restrict__ mask, float* __restrict__ o, Geo g, int chunk) {
-  constexpr int SD = DP + 4, kTile = kRows * SD;
+               const float* __restrict__ mask, float* __restrict__ o, Geo geo, Layout in,
+               Layout out, int chunk) {
+  constexpr int kThreads = 32 * kWarpsOf<NC>;
+  constexpr int RQ = 16 * kWarpsOf<NC>, RK = 8 * NC, S = DP + 4, ND = DP / 8;
+  constexpr int kBuf = (RQ + 2 * RK) * S;
   extern __shared__ float4 smem4[];
-  float* tiles = reinterpret_cast<float*>(smem4);  // two buffers of q, k, v
-  float* sP = tiles + 6 * kTile;
+  float* tiles = reinterpret_cast<float*>(smem4);
 
   const int w = blockIdx.x, h = blockIdx.y;
-  const int b0 = blockIdx.z * chunk, b1 = min(b0 + chunk, g.B);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const bool live = 4 * ty < g.T;  // this thread's rows reach into the window
-  const int n4 = (g.T + 3) & ~3;
-  const long long stride = (long long)g.nW * g.T * g.D;  // from one image to the next
-  const long long first = ((long long)h * g.B * g.nW + w) * g.T * g.D;
-  float a[kSub][kSub];
-  load_add(a, add, mask, g, h, w, ty, tx);
+  const int b0 = blockIdx.z * chunk, b1 = min(b0 + chunk, geo.B);
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int r0 = (threadIdx.x / 32) * 16;  // the warp's first q row
+  const long long at_in = w * in.w + h * in.h, at_out = w * out.w + h * out.h;
+  float a[NC][4];
+  load_add<NC>(a, add, mask, geo, h, w, r0, g, t);
 
-  // the next image's q, k, v are copied in while this one is computed
   auto fetch = [&](int b, float* buf) {
-    const long long at = first + (long long)b * stride;
-    load_window<DP>(buf, q + at, g.T, g.D);
-    load_window<DP>(buf + kTile, k + at, g.T, g.D);
-    load_window<DP>(buf + 2 * kTile, v + at, g.T, g.D);
-    copy_commit();
+    const long long at = at_in + b * in.b;
+    load_tile<DP, RQ, kThreads>(buf, q + at, in.t, geo.T, geo.D);
+    load_tile<DP, RK, kThreads>(buf + RQ * S, k + at, in.t, geo.T, geo.D);
+    load_tile<DP, RK, kThreads>(buf + (RQ + RK) * S, v + at, in.t, geo.T, geo.D);
   };
-  if (b0 < b1) fetch(b0, tiles);
+  for (int i = 0; i < kFwdStages - 1; ++i) {
+    if (b0 + i < b1) fetch(b0 + i, tiles + i * kBuf);
+    copy_commit();
+  }
   for (int b = b0; b < b1; ++b) {
-    float* cur = tiles + ((b - b0) & 1) * 3 * kTile;
-    if (b + 1 < b1) {
-      fetch(b + 1, tiles + ((b + 1 - b0) & 1) * 3 * kTile);
-      copy_wait<1>();
-    } else {
-      copy_wait<0>();
-    }
-    __syncthreads();  // this image's tiles are in
-    const float *sQ = cur, *sK = cur + kTile, *sV = cur + 2 * kTile;
-    float s[kSub][kSub];
-    zero(s);
-    if (live) tile_abt<DP>(s, sQ, sK, ty, tx);
-    probs(s, a, g.T, g.scale, ty, tx);
-#pragma unroll
-    for (int i = 0; i < kSub; ++i)
-#pragma unroll
-      for (int j = 0; j < kSub; ++j) sP[(4 * ty + i) * kPS + tx + 16 * j] = s[i][j];
-    __syncthreads();
-    if (live) {
-      float acc[kSub][DP / 16];
-      zero<DP>(acc);
-      tile_pm<DP>(acc, sP, sV, n4, ty, tx);
-      store_window<DP>(o + first + (long long)b * stride, acc, 1.0f, g.T, g.D, ty, tx);
-    }
-    __syncthreads();  // every read of this buffer and of p is done
+    next_image<kFwdStages>(b, b0, b1, tiles, kBuf, fetch);
+    const float* cur = tiles + ((b - b0) % kFwdStages) * kBuf;
+    const float *sQ = cur, *sK = cur + RQ * S, *sV = sK + RK * S;
+
+    // S = q k^T, then the softmax's numerators in place
+    float s[NC][4], sl[NC][4], inv[2];
+    product<ND, NC>(s, sl, [&](int ks) { return load_a<S>(sQ, r0, 8 * ks, g, t); },
+                    [&](int ks, int j) { return load_b_nk<S>(sK, 8 * j, 8 * ks, g, t); });
+    softmax_rows<NC>(s, sl, a, geo.T, geo.scale, r0 + g, t, inv);
+
+    // O = P V / rowsum, P straight from the score registers
+    float big[ND][4], small[ND][4];
+    product<NC, ND>(big, small, [&](int j) { return acc_as_a(s[j]); },
+                    [&](int j, int n) { return load_b_kn<S>(sV, 8 * j, 8 * n, g, t); });
+    store_rows<ND>(o + at_out + b * out.b, out.t, big, small, inv, r0 + g, geo.T, geo.D, t);
+    __syncthreads();  // every read of this buffer is done
   }
 }
 
-// grid (nW, H, runs of `chunk` images); part: (runs, H, nW, T, T), the
-// run's sum of ds over its images.
-template <int DP>
-__global__ void __launch_bounds__(kThreads, 2)
+// grid (nW, H, runs of `chunk` images), 32 W threads; part: (runs, H, nW,
+// T, T), the run's sum of ds over its images.
+template <int NC, int DP>
+__global__ void __launch_bounds__(32 * kWarpsOf<NC>, DP <= 32 ? 3 : 1)
     bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ add,
                const float* __restrict__ mask, const float* __restrict__ dout,
                float* __restrict__ dq, float* __restrict__ dk, float* __restrict__ dv,
-               float* __restrict__ part, Geo g, int chunk) {
-  constexpr int SD = DP + 4, kTile = kRows * SD;
+               float* __restrict__ part, Geo geo, Layout in, Layout dol, Layout gl, int chunk) {
+  constexpr int kThreads = 32 * kWarpsOf<NC>;
+  constexpr int RQ = 16 * kWarpsOf<NC>, RK = 8 * NC, S = DP + 4, ND = DP / 8;
+  constexpr int SP = RQ + 4;  // row stride of p and ds: 4 (mod 16) for load_at
+  constexpr int kBuf = (2 * RQ + 2 * RK) * S;
   extern __shared__ float4 smem4[];
-  float* tiles = reinterpret_cast<float*>(smem4);  // two buffers of q, k, v, dO
-  float* sP = tiles + 8 * kTile;
-  float* sdS = sP + kRows * kPS;
+  float* tiles = reinterpret_cast<float*>(smem4);  // q, dO, k, v (twice)
+  float* sP = tiles + kBwdStages * kBuf;           // RQ x SP: p[q row][kv column]
+  float* sdS = sP + RQ * SP;
 
   const int w = blockIdx.x, h = blockIdx.y;
-  const int b0 = blockIdx.z * chunk, b1 = min(b0 + chunk, g.B);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const bool live = 4 * ty < g.T;  // this thread's rows reach into the window
-  const int n4 = (g.T + 3) & ~3;
-  const long long stride = (long long)g.nW * g.T * g.D;  // from one image to the next
-  const long long first = ((long long)h * g.B * g.nW + w) * g.T * g.D;
-  float a[kSub][kSub], dsum[kSub][kSub];
-  load_add(a, add, mask, g, h, w, ty, tx);
+  const int b0 = blockIdx.z * chunk, b1 = min(b0 + chunk, geo.B);
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int r0 = (threadIdx.x / 32) * 16;  // the warp's first q row, then kv row
+  const long long at_in = w * in.w + h * in.h, at_do = w * dol.w + h * dol.h;
+  const long long at_g = w * gl.w + h * gl.h;
+  const float ones[2] = {1.0f, 1.0f}, scales[2] = {geo.scale, geo.scale};
+  float a[NC][4], dsum[NC][4];
+  load_add<NC>(a, add, mask, geo, h, w, r0, g, t);
   zero(dsum);
+  // kv columns past 8 NC of p and ds are read (into rows of dk and dv
+  // past T, which are not stored) but never written: keep them finite
+  for (int e = threadIdx.x; e < 2 * RQ * SP; e += kThreads) sP[e] = 0.0f;
 
-  // the next image's q, k, v, dO are copied in while this one is computed
   auto fetch = [&](int b, float* buf) {
-    const long long at = first + (long long)b * stride;
-    load_window<DP>(buf, q + at, g.T, g.D);
-    load_window<DP>(buf + kTile, k + at, g.T, g.D);
-    load_window<DP>(buf + 2 * kTile, v + at, g.T, g.D);
-    load_window<DP>(buf + 3 * kTile, dout + at, g.T, g.D);
-    copy_commit();
+    const long long at = at_in + b * in.b;
+    load_tile<DP, RQ, kThreads>(buf, q + at, in.t, geo.T, geo.D);
+    load_tile<DP, RQ, kThreads>(buf + RQ * S, dout + at_do + b * dol.b, dol.t, geo.T, geo.D);
+    load_tile<DP, RK, kThreads>(buf + 2 * RQ * S, k + at, in.t, geo.T, geo.D);
+    load_tile<DP, RK, kThreads>(buf + (2 * RQ + RK) * S, v + at, in.t, geo.T, geo.D);
   };
-  if (b0 < b1) fetch(b0, tiles);
+  for (int i = 0; i < kBwdStages - 1; ++i) {
+    if (b0 + i < b1) fetch(b0 + i, tiles + i * kBuf);
+    copy_commit();
+  }
   for (int b = b0; b < b1; ++b) {
-    const long long base = first + (long long)b * stride;
-    float* cur = tiles + ((b - b0) & 1) * 4 * kTile;
-    if (b + 1 < b1) {
-      fetch(b + 1, tiles + ((b + 1 - b0) & 1) * 4 * kTile);
-      copy_wait<1>();
-    } else {
-      copy_wait<0>();
-    }
-    __syncthreads();  // this image's tiles are in
-    const float *sQ = cur, *sK = cur + kTile, *sV = cur + 2 * kTile, *sdO = cur + 3 * kTile;
-    float s[kSub][kSub], dp[kSub][kSub];
-    zero(s);
-    zero(dp);
-    if (live) {
-      tile_abt<DP>(s, sQ, sK, ty, tx);
-      tile_abt<DP>(dp, sdO, sV, ty, tx);
-    }
-    probs(s, a, g.T, g.scale, ty, tx);
+    next_image<kBwdStages>(b, b0, b1, tiles, kBuf, fetch);
+    const float* cur = tiles + ((b - b0) % kBwdStages) * kBuf;
+    const float *sQ = cur, *sdO = cur + RQ * S, *sK = cur + 2 * RQ * S, *sV = sK + RK * S;
+    const long long gat = at_g + b * gl.b;
+
+    // p = softmax(q k^T * scale + add), rows past T zero
+    float p[NC][4], lo[NC][4], inv[2];
+    product<ND, NC>(p, lo, [&](int ks) { return load_a<S>(sQ, r0, 8 * ks, g, t); },
+                    [&](int ks, int j) { return load_b_nk<S>(sK, 8 * j, 8 * ks, g, t); });
+    softmax_rows<NC>(p, lo, a, geo.T, geo.scale, r0 + g, t, inv);
 #pragma unroll
-    for (int i = 0; i < kSub; ++i) {
-      float dot = 0.0f;
+    for (int j = 0; j < NC; ++j)
 #pragma unroll
-      for (int j = 0; j < kSub; ++j) dot = fmaf(dp[i][j], s[i][j], dot);
-      dot = row_sum16(dot);
+      for (int e = 0; e < 4; ++e) p[j][e] *= inv[e >> 1];
 #pragma unroll
-      for (int j = 0; j < kSub; ++j) {
-        const float ds = s[i][j] * (dp[i][j] - dot);  // 0 outside the T x T square
-        dsum[i][j] += ds;
-        const int at = (4 * ty + i) * kPS + tx + 16 * j;
-        sP[at] = s[i][j];
-        sdS[at] = ds;
+    for (int j = 0; j < NC; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<float2*>(sP + (r0 + g + 8 * hh) * SP + 8 * j + 2 * t) =
+            make_float2(p[j][2 * hh], p[j][2 * hh + 1]);
+
+    // ds = p (dp - rowsum(dp p)), dp = dO v^T
+    float ds[NC][4];
+    product<ND, NC>(ds, lo, [&](int ks) { return load_a<S>(sdO, r0, 8 * ks, g, t); },
+                    [&](int ks, int j) { return load_b_nk<S>(sV, 8 * j, 8 * ks, g, t); });
+    float dot[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        ds[j][e] += lo[j][e];
+        dot[e >> 1] = fmaf(ds[j][e], p[j][e], dot[e >> 1]);
       }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) dot[hh] = quad_sum(dot[hh]);
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        ds[j][e] = p[j][e] * (ds[j][e] - dot[e >> 1]);  // 0 outside the T x T square
+        dsum[j][e] += ds[j][e];
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<float2*>(sdS + (r0 + g + 8 * hh) * SP + 8 * j + 2 * t) =
+            make_float2(ds[j][2 * hh], ds[j][2 * hh + 1]);
     }
-    __syncthreads();
-    if (live) {
-      float acc[kSub][DP / 16];
-      zero<DP>(acc);
-      tile_ptm<DP>(acc, sP, sdO, g.T, ty, tx);
-      store_window<DP>(dv + base, acc, 1.0f, g.T, g.D, ty, tx);
-      zero<DP>(acc);
-      tile_ptm<DP>(acc, sdS, sQ, g.T, ty, tx);
-      store_window<DP>(dk + base, acc, g.scale, g.T, g.D, ty, tx);
-      zero<DP>(acc);
-      tile_pm<DP>(acc, sdS, sK, n4, ty, tx);
-      store_window<DP>(dq + base, acc, g.scale, g.T, g.D, ty, tx);
-    }
+
+    // dq = ds k * scale, ds straight from registers
+    float big[ND][4], small[ND][4];
+    product<NC, ND>(big, small, [&](int j) { return acc_as_a(ds[j]); },
+                    [&](int j, int n) { return load_b_kn<S>(sK, 8 * j, 8 * n, g, t); });
+    store_rows<ND>(dq + gat, gl.t, big, small, scales, r0 + g, geo.T, geo.D, t);
+    __syncthreads();  // p and ds of every q row are in shared memory
+
+    // this warp's kv rows: dv = p^T dO, dk = ds^T q * scale
+    product<NC, ND>(big, small, [&](int j) { return load_at<SP>(sP, r0, 8 * j, g, t); },
+                    [&](int j, int n) { return load_b_kn<S>(sdO, 8 * j, 8 * n, g, t); });
+    store_rows<ND>(dv + gat, gl.t, big, small, ones, r0 + g, geo.T, geo.D, t);
+    product<NC, ND>(big, small, [&](int j) { return load_at<SP>(sdS, r0, 8 * j, g, t); },
+                    [&](int j, int n) { return load_b_kn<S>(sQ, 8 * j, 8 * n, g, t); });
+    store_rows<ND>(dk + gat, gl.t, big, small, scales, r0 + g, geo.T, geo.D, t);
     __syncthreads();  // every read of this buffer, p and ds is done
   }
 
-  const long long TT = (long long)g.T * g.T;
-  float* out = part + (((long long)blockIdx.z * g.H + h) * g.nW + w) * TT;
+  const long long TT = (long long)geo.T * geo.T;
+  float* dst = part + (((long long)blockIdx.z * geo.H + h) * geo.nW + w) * TT;
 #pragma unroll
-  for (int i = 0; i < kSub; ++i)
+  for (int j = 0; j < NC; ++j)
 #pragma unroll
-    for (int j = 0; j < kSub; ++j) {
-      const int r = 4 * ty + i, c = tx + 16 * j;
-      if (r < g.T && c < g.T) out[r * g.T + c] = dsum[i][j];
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + g + 8 * (e >> 1), c = 8 * j + 2 * t + (e & 1);
+      if (r < geo.T && c < geo.T) dst[r * geo.T + c] = dsum[j][e];
     }
 }
 
-// dbias[h][e] = sum over runs z, then windows w, of part[z][h][w][e]
-// (e indexes the T x T entries).
-__global__ void __launch_bounds__(kThreads)
+// dbias[h][e] = sum over runs z and windows w, in that order, of
+// part[z][h][w][e] (e indexes the T x T entries).  A block sums 32 entries
+// of one head: each of its kSlices thread rows takes every kSlices-th
+// (z, w), and the slices' sums are added in a fixed order.
+constexpr int kSlices = 16;
+
+__global__ void __launch_bounds__(32 * kSlices)
     reduce_bias_kernel(const float* __restrict__ part, float* __restrict__ dbias, int runs,
                        int H, int nW, int TT) {
-  const int idx = blockIdx.x * kThreads + threadIdx.x;
-  if (idx >= H * TT) return;
-  const int h = idx / TT, e = idx % TT;
+  __shared__ float sums[kSlices][33];
+  const int e = blockIdx.x * 32 + threadIdx.x, h = blockIdx.y;
   float acc = 0.0f;
-  for (int z = 0; z < runs; ++z)
-    for (int w = 0; w < nW; ++w) acc += part[(((long long)z * H + h) * nW + w) * TT + e];
-  dbias[idx] = acc;
+  if (e < TT)
+    for (int i = threadIdx.y; i < runs * nW; i += kSlices) {
+      const int z = i / nW, w = i % nW;
+      acc += part[(((long long)z * H + h) * nW + w) * TT + e];
+    }
+  sums[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y == 0 && e < TT) {
+    float total = 0.0f;
+#pragma unroll
+    for (int s = 0; s < kSlices; ++s) total += sums[s][threadIdx.x];
+    dbias[(long long)h * TT + e] = total;
+  }
 }
 
 // dadd (H, nblk, PT, PT): on the diagonal (T, T) blocks the sum over runs of
 // part[z][h][blk * P + p], zeros everywhere else.
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(256)
     reduce_add_kernel(const float* __restrict__ part, float* __restrict__ dadd, int runs, int H,
                       int nblk, int P, int T) {
   const int PT = P * T;
   const long long total = (long long)H * nblk * PT * PT;
   const long long TT = (long long)T * T;
   const int nW = nblk * P;
-  for (long long idx = (long long)blockIdx.x * kThreads + threadIdx.x; idx < total;
-       idx += (long long)gridDim.x * kThreads) {
+  for (long long idx = (long long)blockIdx.x * 256 + threadIdx.x; idx < total;
+       idx += (long long)gridDim.x * 256) {
     const int c = (int)(idx % PT);
     const int r = (int)((idx / PT) % PT);
     const long long hb = idx / ((long long)PT * PT);
@@ -480,39 +594,66 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---- launches ---------------------------------------------------------------
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
 }
 
-template <int DP>
+// f(nc, dp) with the instance's n-tiles (2, 4, 7 or 8) and padded head dim
+// (16, 32 or 64) as integral constants.
+template <typename F>
+int dispatch(int T, int D, F f) {
+  auto by_dp = [&](auto nc) -> int {
+    if (D <= 16) return f(nc, std::integral_constant<int, 16>{});
+    if (D <= 32) return f(nc, std::integral_constant<int, 32>{});
+    return f(nc, std::integral_constant<int, 64>{});
+  };
+  if (T <= 16) return by_dp(std::integral_constant<int, 2>{});
+  if (T <= 32) return by_dp(std::integral_constant<int, 4>{});
+  if (T <= 56) return by_dp(std::integral_constant<int, 7>{});
+  return by_dp(std::integral_constant<int, 8>{});
+}
+
+template <int NC, int DP>
 int fwd(const float* q, const float* k, const float* v, const float* add, const float* mask,
-        float* o, const Geo& g, int chunk, int runs, cudaStream_t st) {
-  const size_t smem = (6 * kRows * (DP + 4) + kRows * kPS) * sizeof(float);
-  cudaError_t err = allow_smem(fwd_kernel<DP>, smem);
+        float* o, const Geo& g, const Layout& in, const Layout& out, int chunk, int runs,
+        cudaStream_t st) {
+  constexpr size_t smem = fwd_smem<NC, DP>();
+  cudaError_t err = allow_smem(fwd_kernel<NC, DP>, smem);
   if (err != cudaSuccess) return err;
-  fwd_kernel<DP><<<dim3(g.nW, g.H, runs), kThreads, smem, st>>>(q, k, v, add, mask, o, g, chunk);
+  fwd_kernel<NC, DP><<<dim3(g.nW, g.H, runs), 32 * kWarpsOf<NC>, smem, st>>>(
+      q, k, v, add, mask, o, g, in, out, chunk);
   return cudaGetLastError();
 }
 
-template <int DP>
+template <int NC, int DP>
 int bwd(const float* q, const float* k, const float* v, const float* add, const float* mask,
-        const float* dout, float* dq, float* dk, float* dv, float* part, const Geo& g, int chunk,
-        int runs, cudaStream_t st) {
-  const size_t smem = (8 * kRows * (DP + 4) + 2 * kRows * kPS) * sizeof(float);
-  cudaError_t err = allow_smem(bwd_kernel<DP>, smem);
+        const float* dout, float* dq, float* dk, float* dv, float* part, const Geo& g,
+        const Layout& in, const Layout& dol, const Layout& gl, int chunk, int runs,
+        cudaStream_t st) {
+  constexpr size_t smem = bwd_smem<NC, DP>();
+  cudaError_t err = allow_smem(bwd_kernel<NC, DP>, smem);
   if (err != cudaSuccess) return err;
-  bwd_kernel<DP><<<dim3(g.nW, g.H, runs), kThreads, smem, st>>>(q, k, v, add, mask, dout, dq, dk,
-                                                               dv, part, g, chunk);
+  bwd_kernel<NC, DP><<<dim3(g.nW, g.H, runs), 32 * kWarpsOf<NC>, smem, st>>>(
+      q, k, v, add, mask, dout, dq, dk, dv, part, g, in, dol, gl, chunk);
   return cudaGetLastError();
 }
 
 bool bad_geo(const Geo& g, int chunk, int runs) {
-  return g.B <= 0 || g.H <= 0 || g.H > 65535 || g.nW <= 0 || g.T < 2 || g.T > kRows ||
-         g.D <= 0 || g.D > 64 || g.D % 8 != 0 || g.P <= 0 || g.nW % g.P != 0 || g.lda < g.T ||
-         chunk <= 0 || runs <= 0 || runs > 65535 || (long long)chunk * runs < g.B;
+  return g.B <= 0 || g.H <= 0 || g.H > 65535 || g.nW <= 0 || g.T < 2 ||
+         g.T > 64 || g.D <= 0 || g.D > 64 || g.D % 8 != 0 || g.P <= 0 || g.nW % g.P != 0 ||
+         g.lda < g.T || chunk <= 0 || runs <= 0 || runs > 65535 ||
+         (long long)chunk * runs < g.B;
 }
+
+// cp.async moves 16 bytes from and to 16-byte aligned addresses, and rows
+// are stored as float2: every stride a multiple of 4 floats.
+bool bad_layout(const Layout& l) { return l.b % 4 || l.w % 4 || l.h % 4 || l.t % 4; }
+
+bool misaligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; }
 
 Geo make_geo(int B, int H, int nW, int T, int D, int P, long long add_h, long long add_blk,
              int lda, float scale) {
@@ -530,59 +671,69 @@ Geo make_geo(int B, int H, int nW, int T, int D, int P, long long add_h, long lo
   return g;
 }
 
-}  // namespace
-
-// Forward.  q, k, v, o: (H * B, nW, T, D); the additive term as in Geo
-// (batched: add = bias (H, T, T), P = 1, add_h = T * T, add_blk = 0,
-// lda = T, mask (nW, T, T) or null; packed: add (H, nblk, P T, P T),
-// add_h = nblk (P T)^2, add_blk = (P T)^2, lda = P T, mask null).  Images
-// are taken `chunk` to a block, runs = ceil(B / chunk).  All f32,
-// contiguous.  Returns a cudaError_t.
-extern "C" int swin_attention_fwd(const float* q, const float* k, const float* v,
-                                  const float* add, const float* mask, float* o, int B, int H,
-                                  int nW, int T, int D, int P, long long add_h, long long add_blk,
-                                  int lda, int chunk, int runs, float scale, void* stream) {
-  const Geo g = make_geo(B, H, nW, T, D, P, add_h, add_blk, lda, scale);
-  if (bad_geo(g, chunk, runs)) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch ((D + 15) / 16) {
-    case 1: return fwd<16>(q, k, v, add, mask, o, g, chunk, runs, st);
-    case 2: return fwd<32>(q, k, v, add, mask, o, g, chunk, runs, st);
-    case 3: return fwd<48>(q, k, v, add, mask, o, g, chunk, runs, st);
-    default: return fwd<64>(q, k, v, add, mask, o, g, chunk, runs, st);
-  }
+Layout layout_at(const long long* strides, int i) {
+  return Layout{strides[4 * i], strides[4 * i + 1], strides[4 * i + 2], strides[4 * i + 3]};
 }
 
-// Backward.  The same geometry as the forward; dout, dq, dk, dv like q;
-// part: (runs, H, nW, T, T) scratch.  grad_add gets dbias (H, T, T) when
-// packed is 0, and dadd (H, nW / P, P T, P T) when it is 1.  Returns a
+}  // namespace
+
+// Forward.  q, k, v and o are read and written through strides (host
+// array of 8: image, window, head and token strides of q, k and v, then of
+// o; the head dim is contiguous).  The additive term as in Geo (batched:
+// add = bias (H, T, T), P = 1, add_h = T * T, add_blk = 0, lda = T, mask
+// (nW, T, T) or null; packed: add (H, nblk, P T, P T), add_h = nblk (P T)^2,
+// add_blk = (P T)^2, lda = P T, mask null), contiguous.  Images are taken
+// `chunk` to a block, runs = ceil(B / chunk).  All f32.  Returns a
 // cudaError_t.
+extern "C" int swin_attention_fwd(const float* q, const float* k, const float* v,
+                                  const float* add, const float* mask, float* o,
+                                  const long long* strides, int B, int H, int nW, int T, int D,
+                                  int P, long long add_h, long long add_blk, int lda, int chunk,
+                                  int runs, float scale, void* stream) {
+  const Geo g = make_geo(B, H, nW, T, D, P, add_h, add_blk, lda, scale);
+  const Layout in = layout_at(strides, 0), out = layout_at(strides, 1);
+  if (bad_geo(g, chunk, runs) || bad_layout(in) || bad_layout(out) || misaligned(q) ||
+      misaligned(k) || misaligned(v) || misaligned(o))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dispatch(T, D, [&](auto nc, auto dp) {
+    return fwd<decltype(nc)::value, decltype(dp)::value>(q, k, v, add, mask, o, g, in, out,
+                                                         chunk, runs, st);
+  });
+}
+
+// Backward.  The same geometry as the forward; strides (host array of 12):
+// q, k, v, then dout, then dq, dk, dv; part: (runs, H, nW, T, T) scratch.
+// grad_add gets dbias (H, T, T) when packed is 0, and dadd (H, nW / P, P T,
+// P T) when it is 1.  Returns a cudaError_t.
 extern "C" int swin_attention_bwd(const float* q, const float* k, const float* v,
                                   const float* add, const float* mask, const float* dout,
                                   float* dq, float* dk, float* dv, float* part, float* grad_add,
-                                  int packed, int B, int H, int nW, int T, int D, int P,
-                                  long long add_h, long long add_blk, int lda, int chunk,
-                                  int runs, float scale, void* stream) {
+                                  int packed, const long long* strides, int B, int H, int nW,
+                                  int T, int D, int P, long long add_h, long long add_blk,
+                                  int lda, int chunk, int runs, float scale, void* stream) {
   const Geo g = make_geo(B, H, nW, T, D, P, add_h, add_blk, lda, scale);
-  if (bad_geo(g, chunk, runs)) return cudaErrorInvalidValue;
+  const Layout in = layout_at(strides, 0), dol = layout_at(strides, 1);
+  const Layout gl = layout_at(strides, 2);
+  if (bad_geo(g, chunk, runs) || bad_layout(in) || bad_layout(dol) || bad_layout(gl) ||
+      misaligned(q) || misaligned(k) || misaligned(v) || misaligned(dout) || misaligned(dq) ||
+      misaligned(dk) || misaligned(dv))
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err;
-  switch ((D + 15) / 16) {
-    case 1: err = bwd<16>(q, k, v, add, mask, dout, dq, dk, dv, part, g, chunk, runs, st); break;
-    case 2: err = bwd<32>(q, k, v, add, mask, dout, dq, dk, dv, part, g, chunk, runs, st); break;
-    case 3: err = bwd<48>(q, k, v, add, mask, dout, dq, dk, dv, part, g, chunk, runs, st); break;
-    default: err = bwd<64>(q, k, v, add, mask, dout, dq, dk, dv, part, g, chunk, runs, st);
-  }
+  int err = dispatch(T, D, [&](auto nc, auto dp) {
+    return bwd<decltype(nc)::value, decltype(dp)::value>(q, k, v, add, mask, dout, dq, dk, dv,
+                                                         part, g, in, dol, gl, chunk, runs, st);
+  });
   if (err != cudaSuccess) return err;
   if (packed) {
     const long long total = (long long)H * (nW / P) * (P * T) * (P * T);
-    const long long blocks = (total + kThreads - 1) / kThreads;
+    const long long blocks = (total + 255) / 256;
     const int grid = (int)(blocks < 8192 ? blocks : 8192);
-    reduce_add_kernel<<<grid, kThreads, 0, st>>>(part, grad_add, runs, H, nW / P, P, T);
+    reduce_add_kernel<<<grid, 256, 0, st>>>(part, grad_add, runs, H, nW / P, P, T);
   } else {
-    const int n = H * T * T;
-    reduce_bias_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, st>>>(part, grad_add, runs,
-                                                                          H, nW, T * T);
+    const int TT = T * T;
+    reduce_bias_kernel<<<dim3((TT + 31) / 32, H), dim3(32, kSlices), 0, st>>>(part, grad_add,
+                                                                            runs, H, nW, TT);
   }
   return cudaGetLastError();
 }

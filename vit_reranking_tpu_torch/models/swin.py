@@ -14,9 +14,10 @@ Swin tree across.  Images are NCHW.  A PyTorch module sizes its parameters
 when it is built, so ``SwinNetwork`` takes the input size: a stage whose
 resolution does not exceed the window gets the clamped window's bias table,
 as Flax sizes it on first use.  Window attention goes through
-``ops/swin_attention.py::swin_attention`` (kernels K4a/K4b on the card) when
-``USE_SWIN_WINDOW_KERNEL`` is on; otherwise, and where the dispatcher
-returns None, it materialises the probabilities as the JAX package does.
+``ops/swin_attention.py::swin_attention_qkv`` (kernels K4a/K4b on the card,
+reading the qkv projection in place) when ``USE_SWIN_WINDOW_KERNEL`` is on;
+otherwise, and where that entry returns None, it materialises the
+probabilities as the JAX package does.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.similarity import l2_normalize
-from ..ops.swin_attention import swin_attention
+from ..ops.swin_attention import swin_attention_qkv
 from .common import DropPath, Mlp, exact_gelu, init_weights, trunc_normal_
 
 # The window-attention kernels, off by default as in the JAX package
@@ -118,16 +119,18 @@ class WindowAttention(nn.Module):
         Bw, T, C = x.shape
         H = self.num_heads
         hd = self.dim // H
-        qkv = self.qkv(x).reshape(Bw, T, 3, H, hd).permute(2, 0, 3, 1, 4)
-        q, k, v = qkv[0], qkv[1], qkv[2]
+        qkv = self.qkv(x)
         bias = self.relative_position_bias_table[self.relative_position_index.reshape(-1)]
         bias = bias.reshape(T, T, H).permute(2, 0, 1)  # (H, T, T)
 
         if USE_SWIN_WINDOW_KERNEL:
-            out = swin_attention(q, k, v, bias, mask, hd**-0.5, n_windows=n_windows)
+            # the kernel reads q, k, v in place and writes proj's input layout
+            out = swin_attention_qkv(qkv, bias, mask, hd**-0.5, H, n_windows=n_windows)
             if out is not None:
-                return self.proj(out.transpose(1, 2).reshape(Bw, T, self.dim))
+                return self.proj(out)
 
+        qkv = qkv.reshape(Bw, T, 3, H, hd).permute(2, 0, 3, 1, 4)
+        q, k, v = qkv[0], qkv[1], qkv[2]
         attn = torch.matmul(q.float(), k.float().transpose(-1, -2)) * hd**-0.5
         attn = attn + bias[None].float()
         if mask is not None:

@@ -13,14 +13,20 @@ the relative-position bias.
     the JAX package's default): P windows packed into one (P T, D) operand
     and one additive term ``add`` (H, nblk, P T, P T) from
     :func:`_packed_add_term`, whose gradient carries the bias gradient back.
-  * :func:`swin_attention`, the (Bw, H, T, D) dispatcher of models/swin.py.
+  * :func:`swin_attention`, the (Bw, H, T, D) dispatcher, and
+    :func:`swin_attention_qkv`, the entry models/swin.py calls, which takes
+    the qkv projection's (Bw, T, 3C) output as it is and returns the
+    (Bw, T, C) layout of ``proj``'s input.
 
-On CUDA tensors both contracts launch the same window core in
+On CUDA tensors every entry launches the same window core in
 ``csrc/swin_attention.cu``, which solves each (T, T) window on its own: the
 packed contract's products across windows are exactly zero after softmax
 (-1e9 off the diagonal blocks), so the core reads only add's diagonal
-blocks and writes zeros to the rest of its gradient.  On CPU tensors each
-function is its plain version, differentiated by autograd.
+blocks and writes zeros to the rest of its gradient.  The core reads and
+writes its operands through strides, so the qkv entry hands it the
+projection in place and gets back one (Bw, T, 3C) gradient, with no copy of
+q, k, v, o or their gradients.  On CPU tensors each function is its plain
+version, differentiated by autograd.
 """
 
 from __future__ import annotations
@@ -53,12 +59,12 @@ MAX_HEAD_DIM = 64
 # images, so that small stages still fill the card's 132 SMs
 TARGET_BLOCKS = 1056
 
-_FWD_ARGS = [*[ctypes.c_void_p] * 6, *[ctypes.c_int] * 6, ctypes.c_longlong,
+_FWD_ARGS = [*[ctypes.c_void_p] * 7, *[ctypes.c_int] * 6, ctypes.c_longlong,
              ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
              ctypes.c_void_p]
-_BWD_ARGS = [*[ctypes.c_void_p] * 11, *[ctypes.c_int] * 7, ctypes.c_longlong,
-             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-             ctypes.c_void_p]
+_BWD_ARGS = [*[ctypes.c_void_p] * 11, ctypes.c_int, ctypes.c_void_p, *[ctypes.c_int] * 6,
+             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_float, ctypes.c_void_p]
 
 
 def swin_window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -140,43 +146,114 @@ def _runs(B: int, H: int, nW: int):
     return chunk, -(-B // chunk)
 
 
-class _Launch:
-    """One call's geometry: q/k/v (H * B, nW, T, D) and where the additive
-    term of each (head, window) lies (see csrc/swin_attention.cu)."""
+def _heads_slowest(t: torch.Tensor, H: int) -> torch.Tensor:
+    """A (H * B, nW, T, D) contract tensor as the (B, nW, H, T, D) view the
+    kernel's strides describe."""
+    G, nW, T, D = t.shape
+    return t.view(H, G // H, nW, T, D).permute(1, 2, 0, 3, 4)
 
-    def __init__(self, q, B, H, P, add_h, add_blk, lda, scale):
-        G, nW, T, D = q.shape
-        if G != H * B or not (2 <= T <= MAX_TOKENS) or D % 8 or D > MAX_HEAD_DIM:
+
+def _qkv_views(qkv: torch.Tensor, nW: int, H: int):
+    """q, k, v of a (B nW, T, 3 H D) projection as (B, nW, H, T, D) views
+    of it, without a copy (the head dim stays contiguous)."""
+    Bw, T, C3 = qkv.shape
+    x = qkv.view(Bw // nW, nW, T, 3, H, C3 // (3 * H))
+    return tuple(x[:, :, :, i].permute(0, 1, 3, 2, 4) for i in range(3))
+
+
+def _tokens_view(o: torch.Tensor, nW: int, H: int) -> torch.Tensor:
+    """A (B nW, T, H D) attention output (or its gradient) as its
+    (B, nW, H, T, D) view."""
+    Bw, T, C = o.shape
+    return o.view(Bw // nW, nW, T, H, C // H).permute(0, 1, 3, 2, 4)
+
+
+def _strides(*groups):
+    """The (image, window, head, token) strides of each group of (B, nW, H,
+    T, D) views (one set a group, as the C entries take them); raises unless
+    a group's views share their strides, the head dim is contiguous and
+    every row starts on a 16-byte boundary (cp.async)."""
+    out = []
+    for group in groups:
+        t = group[0]
+        if any(u.stride() != t.stride() for u in group):
+            raise ValueError("swin attention: q, k and v (and their gradients) must share "
+                             "their strides")
+        if any(u.data_ptr() % 16 for u in group):
+            raise ValueError("swin attention: operands must start on 16-byte boundaries")
+        st = t.stride()
+        if st[4] != 1 or any(x % 4 for x in st[:4]):
             raise ValueError(
-                f"swin attention: q {tuple(q.shape)} with H={H}, B={B}; the kernel takes "
-                f"G = H * B, 2 <= T <= {MAX_TOKENS} and D a multiple of 8 up to {MAX_HEAD_DIM}"
+                f"swin attention: operand with strides {st} at offset {t.storage_offset()}; "
+                "the kernel reads and writes 16-byte aligned rows with a contiguous head dim"
+            )
+        out.extend(st[:4])
+    return (ctypes.c_longlong * len(out))(*out)
+
+
+class _Launch:
+    """One call's geometry: B images of nW windows, H heads, T tokens, D
+    dims, and where the additive term of each (head, window) lies (see
+    csrc/swin_attention.cu).  Operands are (B, nW, H, T, D) views."""
+
+    def __init__(self, B, H, nW, T, D, P, add_h, add_blk, lda, scale):
+        if not (2 <= T <= MAX_TOKENS) or D % 8 or not (0 < D <= MAX_HEAD_DIM):
+            raise ValueError(
+                f"swin attention: T={T}, D={D}; the kernel takes 2 <= T <= {MAX_TOKENS} "
+                f"and D a multiple of 8 up to {MAX_HEAD_DIM}"
             )
         self.chunk, self.runs = _runs(B, H, nW)
         self.dims = (B, H, nW, T, D, P, add_h, add_blk, lda)
         self.scale = float(scale)
 
-    def forward(self, q, k, v, add, mask):
-        o = torch.empty_like(q)
+    def forward(self, q, k, v, add, mask, o):
+        """o = attention(q, k, v), all (B, nW, H, T, D) views."""
         fn = native.launcher("swin_attention", "swin_attention_fwd", _FWD_ARGS)
+        strides = _strides((q, k, v), (o,))
         stream = torch.cuda.current_stream(q.device).cuda_stream
         native.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), add.data_ptr(),
-                        0 if mask is None else mask.data_ptr(), o.data_ptr(), *self.dims,
-                        self.chunk, self.runs, self.scale, stream), "swin_attention_fwd")
-        return o
+                        0 if mask is None else mask.data_ptr(), o.data_ptr(), strides,
+                        *self.dims, self.chunk, self.runs, self.scale, stream),
+                     "swin_attention_fwd")
 
-    def backward(self, q, k, v, add, mask, do, grad_add_shape, packed):
+    def backward(self, q, k, v, add, mask, do, dq, dk, dv, grad_add_shape, packed):
+        """dq, dk, dv (views like q) from do; returns the gradient of the
+        additive term, of ``grad_add_shape``."""
         B, H, nW, T = self.dims[:4]
-        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         part = torch.empty((self.runs, H, nW, T, T), dtype=torch.float32, device=q.device)
         grad_add = torch.empty(grad_add_shape, dtype=torch.float32, device=q.device)
         fn = native.launcher("swin_attention", "swin_attention_bwd", _BWD_ARGS)
+        strides = _strides((q, k, v), (do,), (dq, dk, dv))
         stream = torch.cuda.current_stream(q.device).cuda_stream
         native.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), add.data_ptr(),
                         0 if mask is None else mask.data_ptr(), do.data_ptr(), dq.data_ptr(),
                         dk.data_ptr(), dv.data_ptr(), part.data_ptr(), grad_add.data_ptr(),
-                        int(packed), *self.dims, self.chunk, self.runs, self.scale, stream),
+                        int(packed), strides, *self.dims, self.chunk, self.runs, self.scale,
+                        stream),
                      "swin_attention_bwd")
-        return dq, dk, dv, grad_add
+        return grad_add
+
+
+def _contract_launch(q, H, P, add_h, add_blk, lda, scale):
+    G, nW, T, D = q.shape
+    if G % H:
+        raise ValueError(f"swin attention: q {tuple(q.shape)} with H={H}: G must be H * B")
+    return _Launch(G // H, H, nW, T, D, P, add_h, add_blk, lda, scale)
+
+
+def _contract_forward(launch, q, k, v, add, mask, H):
+    o = torch.empty_like(q)
+    launch.forward(*(_heads_slowest(t, H) for t in (q, k, v)), add, mask,
+                   _heads_slowest(o, H))
+    return o
+
+
+def _contract_backward(launch, q, k, v, add, mask, do, H, packed):
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    grad_add = launch.backward(*(_heads_slowest(t, H) for t in (q, k, v)), add, mask,
+                               *(_heads_slowest(t, H) for t in (do, dq, dk, dv)), add.shape,
+                               packed)
+    return dq, dk, dv, grad_add
 
 
 class _WindowAttention(torch.autograd.Function):
@@ -194,8 +271,8 @@ class _WindowAttention(torch.autograd.Function):
                 f"v {tuple(v.shape)}, bias {tuple(bias.shape)}, "
                 f"mask {None if mask is None else tuple(mask.shape)}"
             )
-        launch = _Launch(q, G // H, H, 1, T * T, 0, T, scale)
-        o = launch.forward(q, k, v, bias, mask)
+        launch = _contract_launch(q, H, 1, T * T, 0, T, scale)
+        o = _contract_forward(launch, q, k, v, bias, mask, H)
         swin_window_attention.fwd_launches += 1
         ctx.launch = launch
         ctx.save_for_backward(q, k, v, bias, mask)
@@ -204,8 +281,8 @@ class _WindowAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, bias, mask = ctx.saved_tensors
-        dq, dk, dv, dbias = ctx.launch.backward(q, k, v, bias, mask, _ready(do),
-                                                bias.shape, packed=False)
+        dq, dk, dv, dbias = _contract_backward(ctx.launch, q, k, v, bias, mask, _ready(do),
+                                               bias.shape[0], packed=False)
         swin_window_attention.bwd_launches += 1
         return dq, dk, dv, dbias, None, None
 
@@ -219,27 +296,66 @@ class _PackedAttention(torch.autograd.Function):
         G, nblk, PT, D = qp.shape
         H = add.shape[0]
         if kp.shape != qp.shape or vp.shape != qp.shape or PT % T \
-                or add.shape != (H, nblk, PT, PT):
+                or add.shape != (H, nblk, PT, PT) or G != H * B:
             raise ValueError(
                 f"_packed_attention: qp {tuple(qp.shape)}, kp {tuple(kp.shape)}, "
-                f"vp {tuple(vp.shape)}, add {tuple(add.shape)}, T={T}"
+                f"vp {tuple(vp.shape)}, add {tuple(add.shape)}, B={B}, T={T}"
             )
         P = PT // T
-        launch = _Launch(qp.view(G, nblk * P, T, D), B, H, P, nblk * PT * PT, PT * PT, PT,
-                         scale)
-        o = launch.forward(qp, kp, vp, add, None)
+        shape = (G, nblk * P, T, D)  # the packed layout is the batched one in memory
+        launch = _contract_launch(qp.view(shape), H, P, nblk * PT * PT, PT * PT, PT, scale)
+        o = _contract_forward(launch, qp.view(shape), kp.view(shape), vp.view(shape), add,
+                              None, H)
         swin_window_attention_packed.fwd_launches += 1
-        ctx.launch = launch
+        ctx.launch, ctx.shape = launch, shape
         ctx.save_for_backward(qp, kp, vp, add)
-        return o
+        return o.view(qp.shape)
 
     @staticmethod
     def backward(ctx, do):
         qp, kp, vp, add = ctx.saved_tensors
-        dq, dk, dv, dadd = ctx.launch.backward(qp, kp, vp, add, None, _ready(do),
-                                               add.shape, packed=True)
+        shape = ctx.shape
+        dq, dk, dv, dadd = _contract_backward(
+            ctx.launch, qp.view(shape), kp.view(shape), vp.view(shape), add, None,
+            _ready(do).view(shape), add.shape[0], packed=True)
         swin_window_attention_packed.bwd_launches += 1
-        return dq, dk, dv, dadd, None, None, None
+        return dq.view(qp.shape), dk.view(qp.shape), dv.view(qp.shape), dadd, None, None, None
+
+
+class _QkvAttention(torch.autograd.Function):
+    """K4a or K4b (``packed``) reading q, k, v from the (B nW, T, 3 H D)
+    projection in place and writing o as (B nW, T, H D); the backward
+    writes dq, dk, dv into one (B nW, T, 3 H D) gradient.  CUDA only."""
+
+    @staticmethod
+    def forward(ctx, qkv, add, mask, scale, H, nW, P, packed):
+        Bw, T, C3 = qkv.shape
+        C = C3 // 3
+        if packed:
+            PT = P * T
+            launch = _Launch(Bw // nW, H, nW, T, C // H, P, (nW // P) * PT * PT, PT * PT, PT,
+                             scale)
+        else:
+            launch = _Launch(Bw // nW, H, nW, T, C // H, 1, T * T, 0, T, scale)
+        o = torch.empty((Bw, T, C), dtype=qkv.dtype, device=qkv.device)
+        launch.forward(*_qkv_views(qkv, nW, H), add, mask, _tokens_view(o, nW, H))
+        counted = swin_window_attention_packed if packed else swin_window_attention
+        counted.fwd_launches += 1
+        ctx.launch, ctx.H, ctx.nW, ctx.packed = launch, H, nW, packed
+        ctx.save_for_backward(qkv, add, mask)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        qkv, add, mask = ctx.saved_tensors
+        H, nW = ctx.H, ctx.nW
+        do_view = _tokens_view(_ready(do), nW, H)
+        dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
+        grad_add = ctx.launch.backward(*_qkv_views(qkv, nW, H), add, mask, do_view,
+                                       *_qkv_views(dqkv, nW, H), add.shape, ctx.packed)
+        counted = swin_window_attention_packed if ctx.packed else swin_window_attention
+        counted.bwd_launches += 1
+        return dqkv, grad_add, None, None, None, None, None, None
 
 
 def _refuse(device: torch.device, what: str) -> None:
@@ -312,22 +428,29 @@ swin_window_attention_packed.fwd_launches = 0
 swin_window_attention_packed.bwd_launches = 0
 
 
+def _routed(Bw: int, nW: int, T: int, Tk: int, D: int) -> bool:
+    """The dispatch gate of :func:`swin_attention` and
+    :func:`swin_attention_qkv`: the JAX package's, narrowed to what the CUDA
+    window core takes."""
+    if Bw % nW or T != Tk or D % 8 or T < 2:
+        return False
+    return nW >= SWIN_KERNEL_MIN_WINDOWS and T <= MAX_TOKENS and D <= MAX_HEAD_DIM
+
+
 def swin_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
                    mask: Optional[torch.Tensor], scale: float,
                    n_windows: int = 1) -> Optional[torch.Tensor]:
-    """(Bw, H, T, D) wrapper used by models/swin.py: Bw = B * nW window
-    batches (window fastest, window_partition's order), H heads.  Reorders to
-    the kernels' head-slowest (G, nW, T, D) layout and runs the packed or the
-    batched contract (``SWIN_KERNEL_PACKED``) when the shape qualifies;
-    returns None when it does not, and the caller materialises.
+    """(Bw, H, T, D) wrapper: Bw = B * nW window batches (window fastest,
+    window_partition's order), H heads.  Reorders to the kernels'
+    head-slowest (G, nW, T, D) layout and runs the packed or the batched
+    contract (``SWIN_KERNEL_PACKED``) when the shape qualifies; returns None
+    when it does not, and the caller materialises.
 
     bias: (H, T, T); mask: (nW, T, T) or None; n_windows: windows per image
     (mask.shape[0] when a mask is given)."""
     Bw, H, T, D = q.shape
     nW = mask.shape[0] if mask is not None else n_windows
-    if Bw % nW or T != k.shape[2] or D % 8 or T < 2:
-        return None
-    if nW < SWIN_KERNEL_MIN_WINDOWS or T > MAX_TOKENS or D > MAX_HEAD_DIM:
+    if not _routed(Bw, nW, T, k.shape[2], D):
         return None
     B = Bw // nW
 
@@ -339,3 +462,70 @@ def swin_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torc
     out = fn(to_kernel(q), to_kernel(k), to_kernel(v), bias.float(),
              None if mask is None else mask.float(), scale)
     return out.reshape(H, B, nW, T, D).permute(1, 2, 0, 3, 4).reshape(Bw, H, T, D)
+
+
+def swin_attention_qkv_plain(qkv: torch.Tensor, bias: torch.Tensor,
+                             mask: Optional[torch.Tensor], scale: float, num_heads: int,
+                             n_windows: int = 1) -> torch.Tensor:
+    """The plain version of :func:`swin_attention_qkv`, on any device: the
+    model's reshape and permute of qkv into q, k, v, :func:`swin_attention`'s
+    head-slowest layout, and the plain version of the contract that
+    ``SWIN_KERNEL_PACKED`` picks (autograd differentiates it)."""
+    Bw, T, C3 = qkv.shape
+    H = num_heads
+    C = C3 // 3
+    D = C // H
+    nW = mask.shape[0] if mask is not None else n_windows
+    B = Bw // nW
+    # (B, nW, T, 3, H, D) -> (3, H, B, nW, T, D): q, k, v head slowest
+    x = qkv.reshape(B, nW, T, 3, H, D).permute(3, 4, 0, 1, 2, 5).reshape(3, H * B, nW, T, D)
+    bias = bias.float()
+    mask = None if mask is None else mask.float()
+    if SWIN_KERNEL_PACKED:
+        P = _pick_pack_packed(nW, T)
+        shape = (H * B, nW // P, P * T, D)
+        out = packed_attention_plain(*(t.reshape(shape) for t in x),
+                                     _packed_add_term(bias, mask, P, nW // P), scale, B)
+    else:
+        out = swin_window_attention_plain(x[0], x[1], x[2], bias, mask, scale)
+    return out.reshape(H, B, nW, T, D).permute(1, 2, 3, 0, 4).reshape(Bw, T, C)
+
+
+def swin_attention_qkv(qkv: torch.Tensor, bias: torch.Tensor, mask: Optional[torch.Tensor],
+                       scale: float, num_heads: int,
+                       n_windows: int = 1) -> Optional[torch.Tensor]:
+    """Window attention straight from the qkv projection, for models/swin.py.
+
+    qkv: (Bw, T, 3 C), the projection's output (Bw = B * nW windows, window
+    fastest; q, k, v in that order along the last dim, each H heads of
+    D = C / H); bias (H, T, T); mask (nW, T, T) or None.  Returns (Bw, T, C),
+    the heads side by side as ``proj`` takes them, or None where
+    :func:`swin_attention` returns None (the caller materialises).
+    Differentiable in qkv and bias.
+
+    On CUDA tensors the kernel (K4a or K4b, as ``SWIN_KERNEL_PACKED``
+    picks; the same launch counters) reads q, k and v in place and writes
+    the output, and in the backward one (Bw, T, 3 C) gradient of qkv, with
+    no copy of either (float32, every row 16-byte aligned, else it raises).
+    On CPU tensors it is :func:`swin_attention_qkv_plain`."""
+    Bw, T, C3 = qkv.shape
+    H = num_heads
+    if C3 % (3 * H):
+        raise ValueError(f"swin_attention_qkv: qkv {tuple(qkv.shape)} with {H} heads")
+    C = C3 // 3
+    D = C // H
+    nW = mask.shape[0] if mask is not None else n_windows
+    if not _routed(Bw, nW, T, T, D):
+        return None
+    if qkv.device.type == "cpu":
+        return swin_attention_qkv_plain(qkv, bias, mask, scale, H, n_windows=nW)
+    _refuse(qkv.device, "swin_attention_qkv")
+    if qkv.dtype != torch.float32:
+        raise ValueError(f"swin_attention_qkv: qkv must be float32, got {qkv.dtype}")
+    if SWIN_KERNEL_PACKED:
+        P = _pick_pack_packed(nW, T)
+        add = _packed_add_term(bias, mask, P, nW // P).contiguous()
+        return _QkvAttention.apply(qkv, add, None, float(scale), H, nW, P, True)
+    return _QkvAttention.apply(qkv, bias.float().contiguous(),
+                               None if mask is None else mask.float().contiguous(),
+                               float(scale), H, nW, 1, False)
