@@ -9,8 +9,13 @@ with the port's nvcc flags into build/k1k2_variants/, checked against the
 plain versions (K1 within 1e-5 with identical rankings, K2 bit for bit) and
 timed by CUDA events in turns (kept, the others, the others reversed, kept)
 at the main paths' shapes: K2 on CvT-13's stage-0 and stage-1 maps at batch
-32, K1 at R=49 full OT (the CvT eval) and R=196 modes a and (d) (the DeiT-S
-evals), 128 queries x 100 candidates.
+32, K1 at R=49 full OT (the CvT eval), R=49 partial OT 0.9 and 0.5 with
+group exit at thresholds 1e-1 and 1e-3 (the SOP recipe), and R=196 modes
+a, (d) and c (the DeiT-S evals), 128 queries x 100 candidates.  K1's
+rankings are checked as chip_smoke.py checks them (``k1_ranks``), and under
+group exit every group must also exit at the plain version's iteration.
+The earlier tree's K1 is timed whatever its check says (it does not report
+its exits); its check is printed.
 
     python3 chip_k1k2_variants.py [--earlier DIR]
 """
@@ -37,6 +42,9 @@ VARIANTS = {
             ("constexpr int kBlockPadMaxRP = 208;", "constexpr int kBlockPadMaxRP = 160;"),
             ("case 13: return launch_block<T, 13, 7, true>",
              "case 13: return launch_block<T, 13, 7, false>")],
+        "K1 group: team slots summed by one thread": [(
+            "for (int q = threadIdx.x; q < size; q += 32) {",
+            "for (int q = 0; q < size && threadIdx.x == 0; ++q) {")],
     },
     "filter_threshold": {
         "K2 four copies of the bins": [
@@ -90,24 +98,38 @@ def build_all(earlier):
     return libs
 
 
-def k1_call(torch, lib, S, u, v, cost=None, thresh=1e-1, iters=100):
-    """sinkhorn_scores(S, u, v, iters, thresh, cost=cost) (full OT, each
-    pair on its own exit) through the library ``lib``."""
+def k1_call(torch, lib, S, u, v, cost=None, thresh=1e-1, iters=100, ot_part=1.0, group=1,
+            earlier=False, iters_out=None):
+    """sinkhorn_scores(S, u, v, iters, thresh, ot_part=ot_part, group=group,
+    cost=cost) through the library ``lib``; ``earlier`` for a library with
+    the earlier entry point (a Km scratch in place of the exit iterations
+    and the teams' work array), ``iters_out`` an int32 tensor for the exit
+    iterations of each group."""
     fn = lib.sinkhorn_score_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-        ctypes.c_void_p]
+    ints, floats, ptr = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
+    head = [ptr, ptr, ints, ptr, ptr, ptr] + ([ptr] if earlier else [ptr, ptr])
+    fn.argtypes = head + [ints, ints, ints, floats, floats, ints, floats, ints, ptr]
     P, R, _ = S.shape
+    partial = ot_part <= 0.999
+    RP = R + int(partial)
     out = torch.empty(P, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
+    if earlier:
+        scratch = torch.empty(P * 2 * RP * (RP | 1) if group > 1 else 0, device="cuda")
+        mid = [scratch.data_ptr() if group > 1 else None]
+    else:
+        work = torch.zeros(2 * P if group > 1 else 0, dtype=torch.int64, device="cuda")
+        mid = [None if iters_out is None else iters_out.data_ptr(),
+               work.data_ptr() if group > 1 else None]
 
     def run():
+        if not earlier and group > 1:
+            work.zero_()  # the teams' slots start at 0, as the wrapper's fresh zeros
         native.check(fn(S.data_ptr(), None if cost is None else cost.data_ptr(),
                         int(S.dtype == torch.bfloat16), u.data_ptr(), v.data_ptr(),
-                        out.data_ptr(), None, P, R, 0, 0.0, 0.05, iters, thresh, 1, stream), "K1")
+                        out.data_ptr(), *mid, P, R, int(partial), 1.0 - ot_part, 0.05, iters,
+                        thresh, group, stream), "K1")
         return out
 
     return run
@@ -180,25 +202,51 @@ def main():
 
     Q, K, S49, u49, v49 = cs.k1_rollout_inputs(torch)
     S196, u196, v196, cost = cs.k1_qk_inputs(torch)
-    for tag, S, u, v, C in (("K1 R=49 full OT f32", S49, u49, v49, None),
-                            ("K1 R=196 mode a f32", S196, u196, v196, None),
-                            ("K1 R=196 mode (d) f32", S196, u196, v196, cost)):
-        ref = sinkhorn_scores_plain(S, u, v, cost=C)
-        calls = {n: k1_call(torch, lib, S, u, v, cost=C)
-                 for n, lib in libs["sinkhorn_score"].items()}
-        for n, call in calls.items():
-            out = call()
+    k1_libs = libs["sinkhorn_score"]
+    for tag, S, u, v, C, kw in (
+            ("K1 R=49 full OT f32", S49, u49, v49, None, {}),
+            ("K1 R=49 partial OT 0.9, group exit", S49, u49, v49, None,
+             dict(ot_part=0.9, group=K)),
+            ("K1 R=49 partial OT 0.9, group exit, thresh 1e-3", S49, u49, v49, None,
+             dict(ot_part=0.9, group=K, thresh=1e-3)),
+            ("K1 R=49 partial OT 0.5, group exit", S49, u49, v49, None,
+             dict(ot_part=0.5, group=K)),
+            ("K1 R=49 partial OT 0.5, group exit, thresh 1e-3", S49, u49, v49, None,
+             dict(ot_part=0.5, group=K, thresh=1e-3)),
+            ("K1 R=196 mode a f32", S196, u196, v196, None, {}),
+            ("K1 R=196 mode (d) f32", S196, u196, v196, cost, {}),
+            ("K1 R=196 partial OT 0.5, group exit, mode c", S196, u196, v196, None,
+             dict(ot_part=0.5, group=K))):
+        ref, ref_iters = sinkhorn_scores_plain(S, u, v, cost=C, return_iters=True, **kw)
+        group = kw.get("group", 1)
+        calls = {}
+        for n, lib in k1_libs.items():
+            if group == 1 and n.startswith("K1 group"):
+                continue  # the per-pair layouts do not run the group code
+            it = torch.empty(S.shape[0] // group, dtype=torch.int32, device="cuda")
+            calls[n] = k1_call(torch, lib, S, u, v, cost=C, earlier=n == EARLIER,
+                               iters_out=None if n == EARLIER else it, **kw)
+            out = calls[n]()
             err = float((out - ref).abs().max())
-            same = torch.equal(torch.argsort(-out.view(Q, K), dim=1, stable=True),
-                               torch.argsort(-ref.view(Q, K), dim=1, stable=True))
-            if not (err <= cs.K1_TOL and same):
-                raise SystemExit(f"{tag} {n}: err {err}, ranks equal {same}")
+            same, exact, notes = cs.k1_ranks(torch, out, ref, ref_iters, S, u, v, Q, K, cost=C,
+                                             **kw)
+            exits = "not reported" if n == EARLIER else \
+                int((it.repeat_interleave(group) != ref_iters).sum()) // group
+            print(f"[{tag}] {n:48s} max_abs_err={err:.3e} ranks_equal={same} "
+                  f"ranks_exact={exact} {'groups' if group > 1 else 'pairs'}_exiting_elsewhere="
+                  f"{exits}", flush=True)
+            for note in notes:
+                print(f"[{tag}] {n}: {note}", flush=True)
+            # the earlier tree's kernel is timed whatever its rankings
+            if n != EARLIER and (not (err <= cs.K1_TOL and exact) or (group > 1 and exits)):
+                raise SystemExit(f"{tag} {n}: err {err}, ranks exact {exact}, "
+                                 f"exits elsewhere {exits}")
         in_turns(torch, tag, calls, reps=10)
         # the kept kernel's fixed part (Km from S or C, and the score) and
         # what an iteration adds: 0 and 8 iterations for every pair
-        kept = libs["sinkhorn_score"][KEPT]
-        fixed, eight = (cs.cuda_ms(torch, k1_call(torch, kept, S, u, v, cost=C, thresh=0.0,
-                                                  iters=n), reps=10) for n in (0, 8))
+        kept = k1_libs[KEPT]
+        fixed, eight = (cs.cuda_ms(torch, k1_call(torch, kept, S, u, v, cost=C, **{
+            **kw, "thresh": 0.0, "iters": n}), reps=10) for n in (0, 8))
         print(f"[{tag}] kept with 0 iterations (Km and the score only) ms={fixed:.4f}; "
               f"with 8 for every pair ms={eight:.4f}, so {(eight - fixed) / 8:.4f} an iteration",
               flush=True)

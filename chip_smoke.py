@@ -21,7 +21,11 @@ seeded generator:
     224 px, --grid_size 14 so R = 196 rerank patches, exact top-100, full
     OT, 128 synthetic images) with the qk method, carried by K1's
     separate-cost mode (d), and with the featvit method, carried by K1's
-    modes from S; K1 is held against its plain version at R = 196 in both.
+    modes from S; K1 is held against its plain version at R = 196 in both;
+  * the repo's SOP recipe (scripts/diml/test_diml_cvt_sop.sh: CvT-13,
+    rollout, --ot_part 0.9) on the evaluation's synthetic set, carried by
+    K1's group exit (one query's candidates frozen together), held against
+    the eager rerank of the same features.
 
 For each path it checks that its kernels carried it (launch counts set to 0
 just before and read just after), and it checks the models' forward or one
@@ -198,25 +202,84 @@ def phase_build(native):
             say(f"[build] {name}: {kernel}: {res}")
 
 
+def k1_plain_f64(torch, S, u, v, ran, iters=100, thresh=1e-1, ot_temp=0.05, ot_part=1.0,
+                 group=1, cost=None):
+    """sinkhorn_scores_plain's arithmetic in f64, each group (pair) running
+    the ``ran`` iterations the f32 plain version ran: the exact scores of
+    the function both the kernel and the plain version compute in f32."""
+    import torch.nn.functional as F
+
+    from vit_reranking_tpu_torch.ops.sinkhorn import extend_dustbin
+
+    S, u, v = S.double(), u.double(), v.double()
+    Km = torch.exp(-(1.0 - (S if cost is None else cost.double())) / ot_temp)
+    if ot_part <= 0.999:
+        Km, u, v = extend_dustbin(Km, u, v, 1.0 - ot_part)
+        S = F.pad(S, (0, 1, 0, 1))
+    r, c = torch.ones_like(u), torch.ones_like(v)
+    for it in range(int(ran.max()) if ran.numel() else 0):
+        live = (ran > it)[:, None]
+        r = torch.where(live, u / torch.bmm(Km, c[:, :, None])[:, :, 0], r)
+        c = torch.where(live, v / torch.bmm(Km.transpose(1, 2), r[:, :, None])[:, :, 0], c)
+    return torch.sum(r * torch.sum((Km * S) * c[:, None, :], dim=2), dim=1)
+
+
+def k1_ranks(torch, out, ref, ran, S, u, v, Q, K, **kw):
+    """Whether the kernel's scores ``out`` rank each query's K candidates as
+    the plain version's ``ref`` do: ``(same, exact, notes)``.  Where the
+    orders part, the plain version's own f32 rounding may be what misorders
+    two near-tied candidates, so the same arithmetic in f64 with the same
+    exits (``ran``) arbitrates: ``exact`` holds if the orders are the same,
+    or if on every query where they part the plain version's order is not
+    the f64 one and the kernel's is exactly it.  ``notes`` describe each
+    such query."""
+    k_order = torch.argsort(-out.view(Q, K), dim=1, stable=True)
+    p_order = torch.argsort(-ref.view(Q, K), dim=1, stable=True)
+    rows = torch.nonzero((k_order != p_order).any(dim=1)).flatten().tolist()
+    if not rows:
+        return True, True, []
+    exact_order = torch.argsort(
+        -k1_plain_f64(torch, S, u, v, ran, **kw).view(Q, K), dim=1, stable=True)
+    exact, notes = True, []
+    for q in rows:
+        j = int(torch.nonzero(k_order[q] != p_order[q])[0])
+        a, b = int(p_order[q, j]), int(k_order[q, j])
+        pa, pb = float(ref.view(Q, K)[q, a]), float(ref.view(Q, K)[q, b])
+        kernel_exact = torch.equal(k_order[q], exact_order[q])
+        plain_exact = torch.equal(p_order[q], exact_order[q])
+        exact = exact and kernel_exact and not plain_exact
+        notes.append(
+            f"query {q} rank {j}: plain {pa:.9e} (candidate {a}) vs {pb:.9e} ({b}), gap "
+            f"{abs(pa - pb):.3e}; kernel off by {abs(float(out.view(Q, K)[q, a]) - pa):.3e} / "
+            f"{abs(float(out.view(Q, K)[q, b]) - pb):.3e}; the f64 order is the kernel's: "
+            f"{kernel_exact}, the plain version's: {plain_exact}")
+    return False, exact, notes
+
+
 def k1_check(torch, tag, S, u, v, Q, K, **kw):
     """Kernel K1 against its plain version on Q x K pairs (S, u, v and, for
-    mode (d), ``kw["cost"]``): max error, identical rankings, kernel and
-    plain ms, and the bound from the iterations each pair ran."""
+    mode (d), ``kw["cost"]``): max error, identical rankings (see
+    :func:`k1_ranks`), under group exit the same exit iteration for every
+    group, kernel and plain ms, and the bound from the iterations each pair
+    ran."""
     from vit_reranking_tpu_torch.ops import native
     from vit_reranking_tpu_torch.ops.rerank import (
         kernel_layout, sinkhorn_scores, sinkhorn_scores_plain,
     )
 
-    out = sinkhorn_scores(S, u, v, **kw)
+    out, k_iters = sinkhorn_scores(S, u, v, return_iters=True, **kw)
     ref, iters = sinkhorn_scores_plain(S, u, v, return_iters=True, **kw)
     torch.cuda.synchronize()
     err = float((out - ref).abs().max())
-    same = torch.equal(torch.argsort(-out.view(Q, K), dim=1, stable=True),
-                       torch.argsort(-ref.view(Q, K), dim=1, stable=True))
+    same, exact, notes = k1_ranks(torch, out, ref, iters, S, u, v, Q, K, **kw)
     # candidates of one query whose plain scores lie within a few f32 ulps
     # of each other, where the strict rank check can trip on sum order alone
     gaps = -torch.diff(torch.sort(ref.view(Q, K), dim=1, descending=True).values, dim=1)
     near_ties = int((gaps < 1e-7).sum())
+    # the iterations each group (each pair, group 1) ran before its exit:
+    # group exit must freeze every group at the plain version's iteration
+    group = kw.get("group", 1)
+    exits_differ = int((k_iters != iters).sum()) // group
     ms = cuda_ms(torch, lambda: sinkhorn_scores(S, u, v, **kw), reps=10)
     plain_ms = cuda_ms(torch, lambda: sinkhorn_scores_plain(S, u, v, **kw), reps=3)
     R = S.shape[-1]
@@ -230,17 +293,23 @@ def k1_check(torch, tag, S, u, v, Q, K, **kw):
     name = ctypes.create_string_buffer(128)
     fn = native.launcher("sinkhorn_score", "sinkhorn_score_instance", [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_char_p, ctypes.c_int])
-    native.check(fn(R, int(RP > R), kw.get("group", 1), int(S.dtype == torch.bfloat16), name,
-                    len(name)), "sinkhorn_score_instance")
+    native.check(fn(R, int(RP > R), group, int(S.dtype == torch.bfloat16), name, len(name)),
+                 "sinkhorn_score_instance")
     kernel = name.value.decode()
-    layout = kernel_layout(R, RP > R, kw.get("group", 1))[0]
+    layout = kernel_layout(R, RP > R, group)[0]
     res = kernel_resources(native, "sinkhorn_score").get(kernel, "resources not reported")
-    say(f"[{tag}] max_abs_err={err:.3e} ranks_equal={same} plain_gaps_below_1e-7={near_ties} "
-        f"mean_iters={float(iters.float().mean()):.2f} kernel_ms={ms:.4f} "
-        f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by}); layout {layout}, "
-        f"{kernel}: {res}")
-    if not (err <= K1_TOL and same and math.isfinite(err)):
+    say(f"[{tag}] max_abs_err={err:.3e} ranks_equal={same} ranks_exact={exact} "
+        f"plain_gaps_below_1e-7={near_ties} mean_iters={float(iters.float().mean()):.2f} "
+        f"{'groups' if group > 1 else 'pairs'}_exiting_elsewhere={exits_differ} "
+        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by}); "
+        f"layout {layout}, {kernel}: {res}")
+    for note in notes:
+        say(f"[{tag}] {note}")
+    if not (err <= K1_TOL and exact and math.isfinite(err)):
         raise AssertionError(f"{tag}: kernel disagrees with its plain version")
+    if group > 1 and exits_differ:
+        raise AssertionError(f"{tag}: {exits_differ} groups exit at another iteration than "
+                             "in the plain version")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)
 
@@ -280,16 +349,19 @@ def phase_k1(torch):
     (Q=128 queries, K=100 candidates, C=128 channels, R=49 patches)."""
     Q, K, S32, u, v = k1_rollout_inputs(torch)
 
-    # the main path's exit threshold (1e-1) stops group exit after 2
-    # iterations on these inputs; 1e-3 runs the block-shared loop ~20 deep
+    # the main path's exit threshold (1e-1) stops group exit after 2 (ot_part
+    # 0.5) or 8 (0.9, the SOP recipe's value) iterations on these inputs;
+    # 1e-3 runs the team-shared loop 12-20 deep
     entries = [k1_check(torch, f"K1 {mode}", S, u, v, Q, K, ot_part=ot_part, group=group,
                         thresh=thresh)
                for mode, S, ot_part, group, thresh in (
                    ("full OT f32", S32, 1.0, 1, 1e-1),
+                   ("R=49 partial OT 0.9, group exit", S32, 0.9, K, 1e-1),
+                   ("R=49 partial OT 0.9, group exit, thresh 1e-3", S32, 0.9, K, 1e-3),
                    ("partial OT 0.5, group exit", S32, 0.5, K, 1e-1),
                    ("partial OT 0.5, group exit, thresh 1e-3", S32, 0.5, K, 1e-3),
                    ("full OT bf16 stream", S32.to(torch.bfloat16), 1.0, 1, 1e-1))]
-    return entries[0]  # the main path's mode
+    return entries[0], entries[1]  # the main path's mode, the SOP recipe's
 
 
 def k1_qk_inputs(torch):
@@ -611,6 +683,75 @@ def phase_reference(torch):
     bad = {k: v for k, v in errs.items() if not v <= FWD_TOL}
     if bad:
         raise AssertionError(f"card and CPU forward disagree beyond {FWD_TOL}: {bad}")
+
+
+# the repo's SOP recipe (scripts/diml/test_diml_cvt_sop.sh: CvT-13, rollout,
+# partial OT 0.9) on the main path's synthetic set and random weights
+SOP_ARGS = MAIN_ARGS + ["--ot_part", "0.9", "--use_minus", "--use_cls_token",
+                        "--temperature", "0.1", "--grid_size", "7", "--bs", "16"]
+
+
+def phase_sop(torch):
+    """run_eval with the SOP recipe's flags, counts zeroed just before and
+    read just after: partial OT sends every query tile to K1's group exit.
+    Its rankings and metrics are then held against the same features
+    reranked eagerly (``use_fused=False``) on the card: identical rankings,
+    MAP@R within 1e-4 points.  Then a warm run, and one under the profiler
+    for K1's device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vit_reranking_tpu_torch.cli import test_diml
+    from vit_reranking_tpu_torch.engine import rerank_eval
+    from vit_reranking_tpu_torch.ops.rerank import sinkhorn_scores
+    from vit_reranking_tpu_torch.ops.rollout import filter_threshold
+
+    calls, finals = [], []
+    real_eval, real_metrics = test_diml.rerank_evaluate, rerank_eval.metrics_from_ranks
+
+    def record_eval(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real_eval(*args, **kwargs)
+
+    def record_metrics(final, *args, **kwargs):
+        finals.append(final.clone())
+        return real_metrics(final, *args, **kwargs)
+
+    sinkhorn_scores.launches = sinkhorn_scores.group_launches = 0
+    filter_threshold.launches = 0
+    with switched([(test_diml, "rerank_evaluate", record_eval),
+                   (rerank_eval, "metrics_from_ranks", record_metrics)]):
+        results, wall = run_main_path(torch, SOP_ARGS)
+    launches = {"sinkhorn_score": sinkhorn_scores.launches,
+                "sinkhorn_score_group": sinkhorn_scores.group_launches,
+                "filter_threshold": filter_threshold.launches}
+    check_metrics("sop", results)
+    say(f"[sop] run_eval {wall:.3f}s (first run), launches {launches}")
+    if launches["sinkhorn_score_group"] <= 0 or launches["filter_threshold"] <= 0:
+        raise AssertionError(f"sop: the group exit layout was not launched: {launches}")
+    fused_finals = finals[:]
+    finals.clear()
+    args, kwargs = calls[0]
+    with switched([(rerank_eval, "metrics_from_ranks", record_metrics)]):
+        eager = real_eval(*args, **{**kwargs, "use_fused": False})
+    torch.cuda.synchronize()
+    same = len(finals) == len(fused_finals) and all(
+        torch.equal(a, b) for a, b in zip(fused_finals, finals))
+    gaps = {m: max(abs(results[m][t] - eager[m][t]) for t in results[m]) for m in results}
+    say(f"[sop] fused vs eager rerank of the same features: rankings_equal={same}, "
+        f"largest metric gaps (points) " + ", ".join(f"{m} {g:.2e}" for m, g in gaps.items()))
+    if not (same and gaps["r1"] == 0.0 and gaps["rp"] == 0.0 and gaps["mapr"] <= 1e-4):
+        raise AssertionError("sop: the fused rerank disagrees with the eager one")
+    _, warm = run_main_path(torch, SOP_ARGS)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = run_main_path(torch, SOP_ARGS)
+    k1 = [e.time_range.end - e.time_range.start for e in prof.events()
+          if e.device_type == DeviceType.CUDA and "sinkhorn_group" in e.name]
+    say(f"[sop] warm run_eval {warm:.3f}s; K1 group exit {sum(k1) / 1e3:.4f} ms device time "
+        f"in {len(k1)} launches of a profiled warm run")
+    report_profile("sop", "warm run_eval", wall, prof, top=8,
+                   port_kernels=("sinkhorn_", "_digit_kernel", "::apply_kernel<"))
+    return launches
 
 
 TRAIN_ARGS = [
@@ -1196,12 +1337,13 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     phase_host(torch, native)
     phase_build(native)
-    k1 = phase_k1(torch)
+    k1, k1_group = phase_k1(torch)
     k2 = phase_k2(torch)
     k3 = phase_k3(torch)
     launches = phase_main(torch)
     phase_profile(torch)
     phase_reference(torch)
+    sop_launches = phase_sop(torch)
     k3_launches = phase_train(torch)
     phase_train_profile(torch)
     phase_train_reference(torch)
@@ -1253,6 +1395,10 @@ def main():
              source="vit_reranking_tpu_torch/csrc/sinkhorn_score.cu",
              replaces="vit_reranking_tpu/ops/rerank_pallas.py:115",
              launches=qk_launches["sinkhorn_score_cost"], **k1_qk),
+        dict(name="sinkhorn_score_group", route="cuda",
+             source="vit_reranking_tpu_torch/csrc/sinkhorn_score.cu",
+             replaces="vit_reranking_tpu/ops/rerank_pallas.py:169",
+             launches=sop_launches["sinkhorn_score_group"], **k1_group),
     ]
     say(f"[done] {time.perf_counter() - t_start:.3f}s in all")
     say(json.dumps({"kernels": kernels}))

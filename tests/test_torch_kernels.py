@@ -8,7 +8,9 @@ Without a card those tests skip: a CUDA kernel has no CPU mode.  Kernel K1
 matches its plain version to 1e-5 on O(1) scores (mat-vec sums in another
 order) with identical rankings, with its OT kernel from S or from a separate
 cost (mode (d), the qk method), in the warp layout (R <= 83) and the block
-layout (R = 84 to 239); kernel K2 is bitwise equal to its plain version,
+layout (R = 84 to 239), and under group exit (partial OT, one query's
+candidates freezing together) in the group layouts, every group at the
+plain version's exit iteration; kernel K2 is bitwise equal to its plain version,
 edge rows included; kernel K3's forward
 (3xTF32 tensor-core products) matches its plain version to 1e-5 and its dq,
 dk, dv match autograd through the plain version to 1e-4 of their largest
@@ -60,14 +62,22 @@ def _softmax_rows(seed, B, N):
     return torch.softmax(x, dim=-1)
 
 
-def test_group_exit_freezes_candidates_together():
-    """group=4 stops the 4 pairs of a group at the same iteration; group=1
-    lets each pair stop on its own."""
+@pytest.mark.parametrize("group,ot_part", [(4, 1.0), (4, 0.9), (6, 0.5)],
+                         ids=["full-4", "partial-0.9-4", "partial-0.5-6"])
+def test_group_exit_freezes_candidates_together(group, ot_part):
+    """A group's pairs stop at the same iteration (the plain version returns
+    one count for every pair of a group, and the wrapper the same on the
+    CPU); group=1 lets each pair stop on its own."""
     S, u, v = _pairs(4, P=12)
-    _, it_group = sinkhorn_scores_plain(S, u, v, group=4, return_iters=True)
-    _, it_pair = sinkhorn_scores_plain(S, u, v, group=1, return_iters=True)
-    assert (it_group.reshape(3, 4) == it_group.reshape(3, 4)[:, :1]).all()
+    kw = dict(ot_part=ot_part, thresh=1e-3)
+    _, it_group = sinkhorn_scores_plain(S, u, v, group=group, return_iters=True, **kw)
+    _, it_pair = sinkhorn_scores_plain(S, u, v, group=1, return_iters=True, **kw)
+    per_group = it_group.reshape(12 // group, group)
+    assert (per_group == per_group[:, :1]).all()
     assert len(set(it_pair.tolist())) > 1
+    scores, it_wrapper = sinkhorn_scores(S, u, v, group=group, return_iters=True, **kw)
+    assert torch.equal(it_wrapper, it_group)
+    assert torch.equal(scores, sinkhorn_scores_plain(S, u, v, group=group, **kw))
 
 
 def test_wrappers_take_plain_versions_on_cpu():
@@ -148,13 +158,14 @@ def test_sinkhorn_kernel_matches_plain_on_card(cuda, ot_part, group, dtype):
 @pytest.mark.parametrize(
     "R,ot_part,group,layout",
     [(100, 1.0, 1, "block"), (196, 1.0, 1, "block"), (100, 0.5, 1, "block"),
-     (196, 0.5, 1, "block"), (196, 0.5, 100, "group"), (83, 1.0, 1, "warp")],
+     (196, 0.5, 1, "block"), (196, 0.5, 100, "group-block"), (83, 1.0, 1, "warp")],
     ids=["a-R100", "a-R196", "c-R100", "c-R196", "c-R196-group", "a-R83-warp"],
 )
 def test_sinkhorn_kernel_large_r_matches_plain_on_card(cuda, R, ot_part, group, layout):
     """Full OT (mode a) and partial OT (mode c) at R = 100 and 196, which
-    no longer fit 8 pairs a block: one block a pair (or, under group exit,
-    one block a group).  R = 83 is the largest R the warp layout takes.
+    no longer fit 8 pairs a block: one block a pair (under group exit too,
+    over a team of blocks resident at once).  R = 83 is the largest R the
+    warp layout takes.
     Exit threshold 1e-3, so every layout runs its loop many times."""
     S, u, v = (t.to(cuda) for t in _pairs(11, P=200, R=R))
     assert kernel_layout(R, ot_part <= 0.999, group)[0] == layout
@@ -212,6 +223,65 @@ def test_sinkhorn_kernel_per_pair_layouts_match_plain_on_card(cuda, R, thresh, m
     assert float((out - ref).abs().max()) <= K1_TOL
     ranks = lambda x: torch.argsort(-x.view(2, 100), dim=1, stable=True)
     assert torch.equal(ranks(out), ranks(ref))
+
+
+@pytest.mark.parametrize("R", [49, 64, 83, 84, 100, 196, 239])
+@pytest.mark.parametrize("group", [100, 128])
+@pytest.mark.parametrize("ot_part", [0.5, 0.9])
+@pytest.mark.parametrize("thresh", [1e-1, 1e-3], ids=["exit-0.1", "exit-0.001"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_sinkhorn_group_layouts_match_plain_on_card(cuda, R, group, ot_part, thresh, dtype):
+    """Partial OT with group exit: two groups, their pairs spread over teams
+    of blocks (group-warp while R plus the dustbin is at most 83, else
+    group-block), held to the plain version within 1e-5 with identical
+    rankings, and every group frozen at the plain version's iteration."""
+    S, u, v = (t.to(cuda) for t in _pairs(17, P=2 * group, R=R))
+    S = S.to(dtype)
+    kw = dict(ot_part=ot_part, group=group, thresh=thresh)
+    assert kernel_layout(R, True, group)[0] == ("group-warp" if R + 1 <= 83 else "group-block")
+    before = (sinkhorn_scores.launches, sinkhorn_scores.group_launches)
+    out, iters = sinkhorn_scores(S, u, v, return_iters=True, **kw)
+    ref, ref_iters = sinkhorn_scores_plain(S, u, v, return_iters=True, **kw)
+    torch.cuda.synchronize()
+    assert (sinkhorn_scores.launches, sinkhorn_scores.group_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.isfinite(out).all()
+    assert torch.equal(iters, ref_iters)
+    assert float((out - ref).abs().max()) <= K1_TOL
+    ranks = lambda x: torch.argsort(-x.view(2, group), dim=1, stable=True)
+    assert torch.equal(ranks(out), ranks(ref))
+
+
+@pytest.mark.parametrize("R", [49, 196])
+def test_sinkhorn_group_layouts_cost_mode_match_plain_on_card(cuda, R):
+    """Mode (d) under group exit: Km from a separate cost, same checks."""
+    S, u, v = (t.to(cuda) for t in _pairs(18, P=200, R=R))
+    C = _pairs(19, P=200, R=R)[0].to(cuda)
+    kw = dict(ot_part=0.9, group=100, thresh=1e-3, cost=C)
+    out, iters = sinkhorn_scores(S, u, v, return_iters=True, **kw)
+    ref, ref_iters = sinkhorn_scores_plain(S, u, v, return_iters=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(iters, ref_iters) and int(iters.min()) > 2
+    assert float((out - ref).abs().max()) <= K1_TOL
+    ranks = lambda x: torch.argsort(-x.view(2, 100), dim=1, stable=True)
+    assert torch.equal(ranks(out), ranks(ref))
+
+
+def test_sinkhorn_kernel_refuses_group_beyond_the_card(cuda):
+    """A group whose blocks the card cannot hold at once (at R = 196, one
+    block a pair, more pairs than resident blocks): ValueError before the
+    launch, naming the limit, no launch."""
+    from vit_reranking_tpu_torch.ops.rerank import _plan
+
+    layout, smem, limit, max_group = _plan(196, True, 100)
+    assert layout == "group-block" and 100 <= max_group < 1000
+    group = max_group + 1
+    S, u, v = (t.to(cuda) for t in _pairs(20, P=group, R=196))
+    assert kernel_layout(196, True, group)[0] is None
+    before = sinkhorn_scores.launches
+    with pytest.raises(ValueError, match=f"the {max_group} pairs the card holds at once"):
+        sinkhorn_scores(S, u, v, ot_part=0.5, group=group)
+    assert sinkhorn_scores.launches == before
 
 
 def test_sinkhorn_kernel_refuses_r_beyond_shared_memory(cuda):

@@ -59,7 +59,7 @@ def _same_order(a, b):
 
 @pytest.mark.parametrize("K", [16, 100])
 @pytest.mark.parametrize(
-    "ot_part", [1.0, 0.5, 0.8], ids=["full", "partial-0.5", "partial-0.8"]
+    "ot_part", [1.0, 0.5, 0.8, 0.9], ids=["full", "partial-0.5", "partial-0.8", "partial-0.9"]
 )
 def test_fused_rollout_matches_jax(K, ot_part):
     fb, centers, roll, top = _problem(0, N=K + 8, K=K)

@@ -31,7 +31,7 @@ from vit_reranking_tpu.models.cvt import ConvProj as JaxConvProj
 from vit_reranking_tpu.models.cvt import CvTNetwork as JaxCvT, CvTSpec as JaxSpec
 
 import vit_reranking_tpu_torch.ops.attention as ap
-from vit_reranking_tpu_torch.cli import train_baseline
+from vit_reranking_tpu_torch.cli import test_diml, train_baseline
 from vit_reranking_tpu_torch.cli.common import build_labels
 from vit_reranking_tpu_torch.core.config import Config
 from vit_reranking_tpu_torch.data.samplers import ClassRandomSampler
@@ -404,3 +404,18 @@ def test_train_baseline_main_on_cpu(monkeypatch, tmp_path):
 def test_train_baseline_refuses_unported_options(tmp_path, flag):
     with pytest.raises(NotImplementedError):
         train_baseline.main(["--device", "cpu", "--save_path", str(tmp_path)] + flag)
+
+
+@pytest.mark.parametrize("flag", [["--resume_path", "x"], ["--bf16"], ["--narrow_sm"],
+                                  ["--cache_device"], ["--mesh_shape", "1,1"],
+                                  ["--checkpoint_every_steps", "5"]],
+                         ids=lambda f: f[0].lstrip("-"))
+def test_eval_refuses_unported_options(tmp_path, monkeypatch, flag):
+    """The evaluation CLI refuses, before it builds anything, every option
+    whose effect the port lacks: with --resume_path it would otherwise score
+    the random model from --seed and write that as the run's result."""
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(NotImplementedError, match=flag[0].lstrip("-")):
+        test_diml.main(["--dataset", "synthetic", "--device", "cpu", "--synthetic_size", "32"]
+                       + flag)
+    assert not (tmp_path / "test_results").exists()

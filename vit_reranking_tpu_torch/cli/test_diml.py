@@ -12,8 +12,10 @@ print the metric table and append a row to
 
 The model is randomly initialised from a ``torch.Generator`` seeded with
 ``--seed``; checkpoint and pretrained loading, feature caching and the
-``--sweep`` over trained runs come with later slices.  Tensors live on
-``--device`` (``cuda`` unless told otherwise).
+``--sweep`` over trained runs come with later slices, and the options that
+need them (``--resume_path``, ``--bf16``, ``--narrow_sm``,
+``--cache_device``, ``--mesh_shape``, ``--checkpoint_every_steps``) raise.
+Tensors live on ``--device`` (``cuda`` unless told otherwise).
 
     python -m vit_reranking_tpu_torch.cli.test_diml_cvt --dataset synthetic \
         --arch cvt_13_normalize --use_rollout --use_ot --bs 32
@@ -34,6 +36,7 @@ from ..core.config import Config, from_args
 from ..data.loader import build_eval_loaders
 from ..engine.extract import extract_features
 from ..engine.rerank_eval import rerank_evaluate
+from .common import refuse_unported
 
 
 def _sync(device: torch.device) -> None:
@@ -42,6 +45,7 @@ def _sync(device: torch.device) -> None:
 
 
 def run_eval(opt: Config, trunc_nums=(0, 100)):
+    refuse_unported(opt, "evaluates")
     device = torch.device(opt.device)
     # f32 products and convolutions in full f32, as the JAX package pins
     # Precision.HIGHEST on its parity-critical contractions

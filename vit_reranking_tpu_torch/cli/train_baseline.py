@@ -22,15 +22,13 @@ import numpy as np
 import torch
 
 from ..core.checkpoint import copy_best, save_checkpoint
-from ..core.config import Config, from_args
+from ..core.config import from_args
 from ..core.logger import RunLogger
 from ..data.loader import build_dataset
 from ..engine.extract import extract_features
 from ..engine.metrics import metrics_from_scores, summarize
 from ..ops.topk import similarity_matrix
-from .common import build_training, run_train_step, seed_everything
-
-UNPORTED = ("cache_device", "mesh_shape", "resume_path", "checkpoint_every_steps")
+from .common import build_training, refuse_unported, run_train_step, seed_everything
 
 
 def evaluate_plain(model, loader, device) -> Dict[str, float]:
@@ -40,16 +38,6 @@ def evaluate_plain(model, loader, device) -> Dict[str, float]:
     centers, labels = feats["center"], feats["labels"]
     sims = similarity_matrix(centers, centers, mask_self=True)
     return summarize(metrics_from_scores(sims, labels, labels, mask_diagonal=False))
-
-
-def _refuse_unported(opt: Config) -> None:
-    if opt.bf16 or opt.narrow_sm:
-        raise NotImplementedError(
-            "--bf16 / --narrow_sm training is not ported yet: the port trains in f32"
-        )
-    for flag in UNPORTED:
-        if getattr(opt, flag):
-            raise NotImplementedError(f"--{flag} is not ported yet")
 
 
 def _sync(device: torch.device) -> None:
@@ -93,7 +81,7 @@ def main(argv=None) -> Dict[str, object]:
     Losses stay on the device until the epoch ends, as in the JAX package:
     no step waits for the host."""
     opt = from_args(argv)
-    _refuse_unported(opt)
+    refuse_unported(opt, "trains")
     device = torch.device(opt.device)
     # f32 products and convolutions in full f32, as the JAX package pins
     # Precision.HIGHEST on its parity-critical contractions

@@ -103,26 +103,37 @@ def sinkhorn_scores_plain(
 
 
 _PLAN_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-              ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)]
+              ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int),
+              ctypes.POINTER(ctypes.c_longlong)]
 _LAUNCH_ARGS = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-    ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
 ]
-_LAYOUTS = {0: "warp", 1: "block", 2: "group"}
+_LAYOUTS = {0: "warp", 1: "block", 2: "group-warp", 3: "group-block"}
+
+
+def _plan(R: int, partial: bool, group: int) -> Tuple[Optional[str], int, int, int]:
+    """:func:`kernel_layout`, and the largest group the group layouts hold
+    at once (0 for group == 1)."""
+    layout, smem = ctypes.c_int(), ctypes.c_longlong()
+    limit, max_group = ctypes.c_int(), ctypes.c_longlong()
+    fn = native.launcher("sinkhorn_score", "sinkhorn_score_plan", _PLAN_ARGS)
+    native.check(fn(R, int(partial), group, ctypes.byref(layout), ctypes.byref(smem),
+                    ctypes.byref(limit), ctypes.byref(max_group)), "sinkhorn_score_plan")
+    return _LAYOUTS.get(layout.value), smem.value, limit.value, max_group.value
 
 
 def kernel_layout(R: int, partial: bool, group: int) -> Tuple[Optional[str], int, int]:
-    """``(layout, shared-memory bytes, the card's per-block limit)`` that
-    kernel K1 takes on the current card for R patches: "warp" (one warp a
-    pair, R plus the dustbin at most 83), "block" (one block a pair, to 239
-    on a 227 KB card), "group" (one block a group of pairs), or None when no
-    layout fits."""
-    layout, smem, limit = ctypes.c_int(), ctypes.c_longlong(), ctypes.c_int()
-    fn = native.launcher("sinkhorn_score", "sinkhorn_score_plan", _PLAN_ARGS)
-    native.check(fn(R, int(partial), group, ctypes.byref(layout), ctypes.byref(smem),
-                    ctypes.byref(limit)), "sinkhorn_score_plan")
-    return _LAYOUTS.get(layout.value), smem.value, limit.value
+    """``(layout, shared-memory bytes a block, the card's per-block limit)``
+    that kernel K1 takes on the current card for R patches: "warp" (one warp
+    a pair, R plus the dustbin at most 83), "block" (one block a pair, to
+    239 on a 227 KB card), and for group > 1 "group-warp" (R plus the
+    dustbin at most 83) or "group-block" (to 240): a group's pairs held the
+    same ways over blocks resident at once, its exit reduced across them;
+    None when no layout fits (R too large, or a group larger than the card
+    holds at once)."""
+    return _plan(R, partial, group)[:3]
 
 
 def sinkhorn_scores(
@@ -135,17 +146,22 @@ def sinkhorn_scores(
     ot_part: float = 1.0,
     group: int = 1,
     cost: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    return_iters: bool = False,
+):
     """:func:`sinkhorn_scores_plain`, as CUDA kernel K1 for CUDA tensors.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (``sinkhorn_scores.launches`` counts the launches, and
-    ``sinkhorn_scores.cost_launches`` those with a separate cost, mode (d)),
-    or raises ``ValueError`` before the launch when no layout of the kernel
-    fits R patches in the card's shared memory.
+    (``sinkhorn_scores.launches`` counts the launches,
+    ``sinkhorn_scores.cost_launches`` those with a separate cost, mode (d),
+    and ``sinkhorn_scores.group_launches`` those with group exit), or raises
+    ``ValueError`` before the launch when no layout of the kernel fits R
+    patches in the card's shared memory or holds a group of ``group`` pairs
+    at once.  ``return_iters`` also returns the scaling iterations each
+    pair ran, as the plain version does.
     """
     if S.device.type == "cpu":
-        return sinkhorn_scores_plain(S, u, v, iters, thresh, ot_temp, ot_part, group, cost=cost)
+        return sinkhorn_scores_plain(S, u, v, iters, thresh, ot_temp, ot_part, group,
+                                     return_iters=return_iters, cost=cost)
     if S.device.type != "cuda":
         raise ValueError(f"sinkhorn_scores: unsupported device {S.device}")
     P, R, R2 = S.shape
@@ -167,35 +183,43 @@ def sinkhorn_scores(
     if group < 1 or P % group:
         raise ValueError(f"sinkhorn_scores: {P} pairs do not split into groups of {group}")
     partial = ot_part <= 0.999
-    layout, smem, limit = kernel_layout(R, partial, group)
+    layout, smem, limit, max_group = _plan(R, partial, group)
     if layout is None:
+        if group > 1 and smem <= limit:
+            raise ValueError(
+                f"sinkhorn_scores: a group of {group} pairs at R={R} is more than the "
+                f"{max_group} pairs the card holds at once, the group layouts' limit"
+            )
         raise ValueError(
             f"sinkhorn_scores: R={R} ({'partial' if partial else 'full'} OT, group {group}) "
             f"needs {smem} bytes of shared memory a block; the card's limit is {limit}"
         )
-    RP = R + int(partial)
+    n_groups = P // group
     out = torch.empty(P, dtype=torch.float32, device=S.device)
-    # Km and its transpose per pair, row stride RP | 1, when a block walks a
-    # whole group (they do not fit shared memory); unused for group == 1
-    scratch = torch.empty(
-        P * 2 * RP * (RP | 1) if group > 1 else 0, dtype=torch.float32, device=S.device
-    )
+    ran = torch.empty(n_groups, dtype=torch.int32, device=S.device) if return_iters else None
+    # the group layouts' teams: two sets of 64-bit residual slots each, at
+    # most one team a group of at most one block a pair
+    work = torch.zeros(2 * P, dtype=torch.int64, device=S.device) if group > 1 else None
     fn = native.launcher("sinkhorn_score", "sinkhorn_score_launch", _LAUNCH_ARGS)
     stream = torch.cuda.current_stream(S.device).cuda_stream
     native.check(
         fn(S.data_ptr(), None if cost is None else cost.data_ptr(),
            int(S.dtype == torch.bfloat16), u.data_ptr(), v.data_ptr(), out.data_ptr(),
-           scratch.data_ptr() if group > 1 else None, P, R, int(partial), 1.0 - ot_part,
-           ot_temp, iters, thresh, group, stream),
+           None if ran is None else ran.data_ptr(), None if work is None else work.data_ptr(),
+           P, R, int(partial), 1.0 - ot_part, ot_temp, iters, thresh, group, stream),
         "sinkhorn_scores",
     )
     sinkhorn_scores.launches += 1
     sinkhorn_scores.cost_launches += int(cost is not None)
+    sinkhorn_scores.group_launches += int(group > 1)
+    if return_iters:
+        return out, ran.repeat_interleave(group)
     return out
 
 
 sinkhorn_scores.launches = 0
 sinkhorn_scores.cost_launches = 0
+sinkhorn_scores.group_launches = 0
 
 
 def rollout_marginals(
