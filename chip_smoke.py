@@ -17,6 +17,13 @@ seeded generator:
     forward and backward, reached through the qkv entry that reads the
     model's projection in place; then one step and an evaluation batch with
     the batched variant, K4b;
+  * the reference's default training precision: K3 and K4 in bf16 against
+    their plain versions at CvT-13 stage 0 and Swin-T stage 0, then
+    train_baseline on its card defaults (bf16 activations, narrowed
+    softmax) for CvT-13 (K3's bf16 form) and Swin-T with the window
+    kernels on (K4a's bf16 form; K4b's in one step), each against its f32
+    step in turns, and one bf16 CvT-13 step against the CPU's (the f32
+    phases above pass --no-bf16 --no-narrow_sm);
   * DeiT-S evaluation: test_diml_vit (full DeiT-S with embed_dim 128 at
     224 px, --grid_size 14 so R = 196 rerank patches, exact top-100, full
     OT, 128 synthetic images) with the qk method, carried by K1's
@@ -55,6 +62,7 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12  # f32 outside the tensor cores (SIMT)
 TF32_OPS_PER_S = 495e12  # TF32 on the tensor cores, dense
+BF16_OPS_PER_S = 989e12  # bf16 on the tensor cores, dense
 
 K1_TOL = 1e-5  # kernel vs plain scores: f32 mat-vec sums in another order
 FWD_TOL = 1e-4  # card vs CPU forward: cuDNN/cuBLAS vs CPU f32 sum order, 13 blocks deep
@@ -70,6 +78,14 @@ STEP_RTOL = 1e-4
 # dbias/dadd held to their largest magnitude (dbias sums B * nW windows)
 K4_FWD_TOL = 1e-5
 K4_GRAD_RTOL = 1e-4
+# the bf16 forms of K3 and K4 vs their plain versions, of the largest
+# magnitude: both round p and ds to bf16 from f32 values summed in another
+# order, so a value can land one bf16 step (2^-8 relative) apart
+BF16_FWD_TOL = 1e-2
+BF16_GRAD_TOL = 2e-2
+# card vs CPU bf16 train step: the CPU tests' bf16 bars (tests/test_torch_bf16.py)
+BF16_STEP_LOSS_RTOL = 1e-2
+BF16_STEP_GRAD_RTOL = 5e-2
 
 
 def say(*parts):
@@ -754,29 +770,35 @@ def phase_sop(torch):
     return launches
 
 
-TRAIN_ARGS = [
+# the CvT-13 recipe on its card defaults (bf16 activations, narrowed
+# softmax), and the same in f32 for the f32 phases
+TRAIN_BF16_ARGS = [
     "--dataset", "synthetic", "--arch", "cvt_13_normalize", "--loss", "margin",
     "--batch_mining", "distance", "--bs", "112", "--samples_per_class", "2",
     "--n_epochs", "1", "--evalevery", "1", "--synthetic_classes", "8",
     "--synthetic_per_class", "48", "--synthetic_size", "224", "--embed_dim", "128",
     "--seed", "0", "--kernels", "8", "--device", "cuda",
 ]
+F32 = ["--no-bf16", "--no-narrow_sm"]
+TRAIN_ARGS = TRAIN_BF16_ARGS + F32
+COUNTERS = ("fwd", "bwd", "fwd_bf16", "bwd_bf16")
 
 
 def run_train(torch, args, counted):
     """train_baseline.main(args) from a scratch working directory with
-    --save_path there, the launch counts of ``counted`` (a kernel wrapper)
-    set to 0 just before and read just after.  Returns (summary, launches,
-    wall seconds)."""
+    --save_path there, the launch counts of ``counted`` (a kernel wrapper;
+    f32 and bf16) set to 0 just before and read just after.  Returns
+    (summary, launches, wall seconds)."""
     from vit_reranking_tpu_torch.cli import train_baseline
 
     with scratch_cwd() as work:
-        counted.fwd_launches = counted.bwd_launches = 0
+        for c in COUNTERS:
+            setattr(counted, f"{c}_launches", 0)
         t0 = time.perf_counter()
         summary = train_baseline.main(args + ["--save_path", os.path.join(work, "runs")])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        return summary, {"fwd": counted.fwd_launches, "bwd": counted.bwd_launches}, wall
+        return summary, {c: getattr(counted, f"{c}_launches") for c in COUNTERS}, wall
 
 
 def report_train(tag, summary, wall, kernel, launches, expected, steps=3):
@@ -825,36 +847,45 @@ def switched(settings):
             setattr(m, n, val)
 
 
-def ab_and_profile(torch, tag, args, variants, order, profiled, port_kernels, top=15):
-    """Warm train steps at ``args``'s configuration under each of
-    ``variants`` (label -> module settings, see :func:`switched`) in the
-    turns of ``order``, each turn 3 timed steps after a warm-up, with its
-    median and peak memory; then one step of each label in ``profiled``
-    under torch.profiler."""
+def ab_and_profile(torch, tag, args, variants, order, profiled, port_kernels, top=15,
+                   flags=None):
+    """Warm train steps at ``args``'s configuration (its card defaults, see
+    core/config.py::resolve_precision) under each of ``variants`` (label ->
+    module settings, see :func:`switched`) in the turns of ``order``, each
+    turn 3 timed steps after a warm-up, with its median and peak memory;
+    then one step of each label in ``profiled`` under torch.profiler.  A
+    label with command-line ``flags`` of its own (label -> list) trains a
+    state built from ``args`` plus them, from the same seed and batch."""
     from torch.profiler import ProfilerActivity, profile
 
     from vit_reranking_tpu_torch.cli.common import build_training, run_train_step
-    from vit_reranking_tpu_torch.core.config import from_args
+    from vit_reranking_tpu_torch.core.config import from_args, resolve_precision
     from vit_reranking_tpu_torch.data.loader import build_dataset
 
-    opt = from_args(args)
-    loaders, _ = build_dataset(opt)
-    lab, images, _ = next(iter(loaders["training"]))
-    _, _, state = build_training(opt, len(loaders["training"]), torch.device("cuda"))
+    flags = flags or {}
+    states = {}
+    for label in variants:
+        key = tuple(flags.get(label, ()))
+        if key not in states:
+            opt = resolve_precision(from_args(args + list(key)))
+            loaders, _ = build_dataset(opt)
+            lab, images, _ = next(iter(loaders["training"]))
+            states[key] = build_training(opt, len(loaders["training"]), torch.device("cuda"))[2]
     gen = torch.Generator(device="cuda").manual_seed(1)
 
-    def step():
+    def step(label):
+        state = states[tuple(flags.get(label, ()))]
         return run_train_step(state, lab, images, gen, "cuda")
 
     def timed_steps(label, n=3):
         with switched(variants[label]):
-            step()  # warm-up
+            step(label)  # warm-up
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             times = []
             for _ in range(n):
                 t0 = time.perf_counter()
-                float(step()["loss"])
+                float(step(label)["loss"])
                 times.append(time.perf_counter() - t0)
             return sorted(times)[n // 2], torch.cuda.max_memory_allocated() / 2**30
 
@@ -863,15 +894,17 @@ def ab_and_profile(torch, tag, args, variants, order, profiled, port_kernels, to
         + ", ".join(f"{label} {t:.4f} s {m:.2f} GiB" for label, t, m in ab))
     for label in profiled:
         with switched(variants[label]):
-            step()  # warm-up
+            step(label)  # warm-up
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                step()
+                step(label)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
         report_profile(f"{tag}-profile", f"one warm step, {label},", wall, prof, top=top,
                        port_kernels=port_kernels)
+    del states
+    torch.cuda.empty_cache()
 
 
 def phase_train_profile(torch):
@@ -886,10 +919,12 @@ def phase_train_profile(torch):
                    ("dkdv_kernel", "dq_kernel", "fwd_kernel", "delta_kernel"))
 
 
-def card_vs_cpu_step(torch, tag, base):
+def card_vs_cpu_step(torch, tag, base, rtol=None):
     """One train step of ``base`` on the card against the same step on the
     CPU: a copy of the same weights on each, 4 images at 224 px, fixed
-    triplets, Adam with two groups; loss and gradient norm compared."""
+    triplets, Adam with two groups; loss and gradient norm compared at
+    ``rtol`` (by key; STEP_RTOL for both by default)."""
+    rtol = rtol or {"loss": STEP_RTOL, "grad_l2": STEP_RTOL}
     import copy
     from types import SimpleNamespace
 
@@ -922,9 +957,9 @@ def card_vs_cpu_step(torch, tag, base):
     rel = {k: abs(card[k] - cpu[k]) / abs(cpu[k]) for k in ("loss", "grad_l2")}
     say(f"[{tag}] card {card} cpu {cpu} rel_err "
         + " ".join(f"{k}={v:.3e}" for k, v in rel.items()))
-    bad = {k: v for k, v in rel.items() if not v <= STEP_RTOL}
+    bad = {k: v for k, v in rel.items() if not v <= rtol[k]}
     if bad or not all(math.isfinite(v) for v in card.values()):
-        raise AssertionError(f"card and CPU train steps disagree beyond {STEP_RTOL}: {bad}")
+        raise AssertionError(f"card and CPU train steps disagree beyond {rtol}: {bad}")
 
 
 def phase_train_reference(torch):
@@ -1181,16 +1216,17 @@ def k4_qkv_entry(torch, stage, nW, H, res, B, T, D, bounds, gen):
     torch.cuda.empty_cache()
 
 
-SWIN_TRAIN_ARGS = [
+SWIN_TRAIN_BF16_ARGS = [
     "--dataset", "synthetic", "--arch", "swin_normalize", "--loss", "margin",
     "--batch_mining", "distance", "--bs", "112", "--samples_per_class", "2",
     "--n_epochs", "1", "--evalevery", "1", "--synthetic_classes", "8",
     "--synthetic_size", "224", "--embed_dim", "128", "--seed", "0", "--kernels", "8",
     "--device", "cuda",
 ]
+SWIN_TRAIN_ARGS = SWIN_TRAIN_BF16_ARGS + F32
 
 
-def run_swin_train(torch, per_class, packed):
+def run_swin_train(torch, per_class, packed, base=SWIN_TRAIN_ARGS):
     """train_baseline --arch swin_normalize with the window kernels on
     (``packed`` picks the variant), that variant's launches counted."""
     from vit_reranking_tpu_torch.models import swin
@@ -1198,7 +1234,7 @@ def run_swin_train(torch, per_class, packed):
 
     fn = swa.swin_window_attention_packed if packed else swa.swin_window_attention
     with switched([(swin, "USE_SWIN_WINDOW_KERNEL", True), (swa, "SWIN_KERNEL_PACKED", packed)]):
-        return run_train(torch, SWIN_TRAIN_ARGS + ["--synthetic_per_class", str(per_class)], fn)
+        return run_train(torch, base + ["--synthetic_per_class", str(per_class)], fn)
 
 
 def phase_swin_train(torch):
@@ -1260,6 +1296,307 @@ def phase_swin_reference(torch):
     if (fn.fwd_launches, fn.bwd_launches) != (10, 10):
         raise AssertionError(f"the card step did not run K4a in its 10 blocks: "
                              f"{(fn.fwd_launches, fn.bwd_launches)}")
+
+
+# ---- the bf16 recipe: K3 and K4 in bf16, the default training precision ----------
+
+def rel_err(a, b):
+    """Largest |a - b| over the largest |b|, in f32."""
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+
+def phase_k3_bf16(torch):
+    """K3's bf16 form against its plain version (the TPU kernel's rounding
+    points, explicit backward) at CvT-13 stage 0 and batch 112, the backward
+    twice for the same bits, with SDPA in bf16 (flash) as the yardstick."""
+    import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
+
+    from vit_reranking_tpu_torch.ops.attention import (
+        kv_resident_attention, kv_resident_attention_plain,
+    )
+
+    BH, T, Tkv, D = 112, 3136, 784, 64
+    scale = D ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    q, do = (torch.randn(BH, T, D, device="cuda", generator=gen).bfloat16() for _ in range(2))
+    k, v = (torch.randn(BH, Tkv, D, device="cuda", generator=gen).bfloat16() for _ in range(2))
+    with torch.no_grad():
+        out = kv_resident_attention(q, k, v, scale)
+        ref = kv_resident_attention_plain(q, k, v, scale)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    og = kv_resident_attention(*leaves, scale)
+    grads = torch.autograd.grad(og, leaves, do, retain_graph=True)
+    again = torch.autograd.grad(og, leaves, do, retain_graph=True)
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ro = kv_resident_attention_plain(*ref_leaves, scale)
+    ref_grads = torch.autograd.grad(ro, ref_leaves, do, retain_graph=True)
+    torch.cuda.synchronize()
+    fwd_err = rel_err(out, ref)
+    rel = {n: rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv"), grads, ref_grads)}
+    abs_fwd = float((out.float() - ref.float()).abs().max())
+    abs_bwd = max(float((a.float() - b.float()).abs().max()) for a, b in zip(grads, ref_grads))
+    same_bits = all(torch.equal(a, b) for a, b in zip(grads, again))
+    del ref, ref_grads, again
+
+    backend = sdpa_backend(q[:1, None], k[:1, None], v[:1, None], scale=scale)
+    q4, k4, v4 = (t.view(BH, 1, -1, D).clone().requires_grad_() for t in (q, k, v))
+    with sdpa_kernel([backend]):
+        o4 = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+        sdpa_fwd_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4.detach(), k4.detach(), v4.detach(), scale=scale), reps=10)
+        sdpa_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+            o4, (q4, k4, v4), do.view(BH, 1, T, D), retain_graph=True), reps=10)
+    del q4, k4, v4, o4
+    with torch.no_grad():
+        fwd_ms = cuda_ms(torch, lambda: kv_resident_attention(q, k, v, scale), reps=20)
+        fwd_plain_ms = cuda_ms(torch, lambda: kv_resident_attention_plain(q, k, v, scale), reps=3)
+    bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(og, leaves, do, retain_graph=True),
+                     reps=10)
+    bwd_plain_ms = cuda_ms(torch, lambda: torch.autograd.grad(ro, ref_leaves, do,
+                                                              retain_graph=True), reps=3)
+    del ro, ref_leaves, og, leaves
+    # bytes: bf16 q, k, v (and dO) read once, bf16 o (dq, dk, dv) written
+    # once, lse (and delta) f32; work: the function's 2 (forward) and 5
+    # (backward) products of T Tkv D multiply-adds, at the dense bf16 rate
+    elem, rows = 2, BH * T
+    fwd_bytes = (q.numel() * 2 + k.numel() * 2) * elem + rows * 4
+    bwd_bytes = (q.numel() * 4 + k.numel() * 4) * elem + rows * 4
+    fwd_bound = bound(fwd_bytes, 4 * T * Tkv * D * BH, BF16_OPS_PER_S)
+    bwd_bound = bound(bwd_bytes, 10 * T * Tkv * D * BH, BF16_OPS_PER_S)
+    say(f"[K3 bf16 fwd BH={BH} T={T} Tkv={Tkv} D={D}] rel_err={fwd_err:.3e} "
+        f"(max_abs_err={abs_fwd:.3e}) kernel_ms={fwd_ms:.4f} plain_ms={fwd_plain_ms:.4f} "
+        f"sdpa_bf16_ms={sdpa_fwd_ms:.4f} bound_ms={fwd_bound[0]:.5f} ({fwd_bound[1]}, "
+        f"{fwd_bound[0] / fwd_ms * 100:.1f}% of it)")
+    say(f"[K3 bf16 bwd BH={BH} T={T} Tkv={Tkv} D={D}] rel_err "
+        + " ".join(f"{n}={e:.3e}" for n, e in rel.items())
+        + f" (max_abs_err={abs_bwd:.3e}) same_bits_twice={same_bits} kernel_ms={bwd_ms:.4f} "
+        f"plain_ms={bwd_plain_ms:.4f} sdpa_bf16_bwd_ms={sdpa_bwd_ms:.4f} "
+        f"bound_ms={bwd_bound[0]:.5f} ({bwd_bound[1]}, {bwd_bound[0] / bwd_ms * 100:.1f}% of it)")
+    say(f"[K3 bf16] sdpa backend in bf16: {backend.name}")
+    if not fwd_err <= BF16_FWD_TOL:
+        raise AssertionError(f"K3 bf16 forward disagrees with its plain version: {fwd_err}")
+    bad = {n: e for n, e in rel.items() if not e <= BF16_GRAD_TOL}
+    if bad or not same_bits:
+        raise AssertionError(f"K3 bf16 backward: {bad}, same bits {same_bits}")
+    return {
+        "fwd": dict(max_abs_err=abs_fwd, ms=fwd_ms, plain_ms=fwd_plain_ms,
+                    bound_ms=fwd_bound[0], bound_by=fwd_bound[1], library_ms=sdpa_fwd_ms),
+        "bwd": dict(max_abs_err=abs_bwd, ms=bwd_ms, plain_ms=bwd_plain_ms,
+                    bound_ms=bwd_bound[0], bound_by=bwd_bound[1], library_ms=sdpa_bwd_ms),
+    }
+
+
+def phase_k4_bf16(torch):
+    """K4's bf16 form at Swin-T stage 0 and batch 112 (G=336, nW=64, T=49,
+    D=32, the shifted-window mask): the packed (K4a) and batched (K4b)
+    contracts and the model's qkv entry against their plain versions,
+    forward and backward, the gradients the same bits on a rerun, with SDPA
+    in bf16 over the same windows (float mask) as the yardstick."""
+    import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
+
+    from vit_reranking_tpu_torch.models.swin import _shift_attn_mask
+    from vit_reranking_tpu_torch.ops import swin_attention as swa
+
+    T, D, B, nW, H, res = 49, 32, 112, 64, 3, 56
+    G, scale = H * B, D ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    q, k, v, do = (torch.randn(G, nW, T, D, device="cuda", generator=gen).bfloat16()
+                   for _ in range(4))
+    bias = torch.randn(H, T, T, device="cuda", generator=gen)
+    mask = torch.from_numpy(_shift_attn_mask(res, res, 7, 3)).cuda()
+    P = swa._pick_pack_packed(nW, T)
+    nblk, PT = nW // P, P * T
+    add = swa._packed_add_term(bias, mask, P, nblk).contiguous()
+    pshape = (G, nblk, PT, D)
+
+    q4, k4, v4 = (t.view(G * nW, 1, T, D).clone().requires_grad_() for t in (q, k, v))
+    full_mask = (bias.repeat_interleave(B, dim=0)[:, None] + mask[None]).view(
+        G * nW, 1, T, T).bfloat16()
+    backend = sdpa_backend(q4[:8], k4[:8], v4[:8], attn_mask=full_mask[:8], scale=scale)
+    with sdpa_kernel([backend]):
+        o4 = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=full_mask, scale=scale)
+        sdpa_fwd = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4.detach(), k4.detach(), v4.detach(), attn_mask=full_mask, scale=scale), reps=10)
+        sdpa_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
+            o4, (q4, k4, v4), do.view(G * nW, 1, T, D), retain_graph=True), reps=10)
+    del q4, k4, v4, o4, full_mask
+
+    elem = 2
+    ops_fwd, ops_bwd = 4 * T * T * D * G * nW, 10 * T * T * D * G * nW
+    entries = {}
+    for name, fn, plain, operands in (
+        ("K4a packed", lambda *a: swa._packed_attention(*a, scale, B, T),
+         lambda *a: swa.packed_attention_plain(*a, scale, B),
+         (q.view(pshape), k.view(pshape), v.view(pshape), add)),
+        ("K4b batched", lambda *a: swa.swin_window_attention(*a, mask, scale),
+         lambda *a: swa.swin_window_attention_plain(*a, mask, scale), (q, k, v, bias)),
+    ):
+        gout = do.view(operands[0].shape)
+        leaves = [t.clone().requires_grad_() for t in operands]
+        out = fn(*leaves)
+        grads = torch.autograd.grad(out, leaves, gout, retain_graph=True)
+        again = torch.autograd.grad(out, leaves, gout, retain_graph=True)
+        ref_leaves = [t.clone().requires_grad_() for t in operands]
+        ref = plain(*ref_leaves)
+        ref_grads = torch.autograd.grad(ref, ref_leaves, gout, retain_graph=True)
+        torch.cuda.synchronize()
+        fwd_err = rel_err(out, ref)
+        abs_fwd = float((out.float() - ref.float()).abs().max())
+        names = ("dq", "dk", "dv", "dadd" if "packed" in name else "dbias")
+        rel = {n: rel_err(a, b) for n, a, b in zip(names, grads, ref_grads)}
+        abs_bwd = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(grads, ref_grads))
+        same_bits = all(torch.equal(a, b) for a, b in zip(grads, again))
+        with torch.no_grad():
+            ms = cuda_ms(torch, lambda: fn(*operands), reps=20)
+            plain_ms = cuda_ms(torch, lambda: plain(*operands), reps=3)
+        bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(out, leaves, gout,
+                                                            retain_graph=True), reps=20)
+        bwd_plain_ms = cuda_ms(torch, lambda: torch.autograd.grad(ref, ref_leaves, gout,
+                                                                  retain_graph=True), reps=3)
+        del out, ref, grads, again, ref_grads, leaves, ref_leaves
+        # bf16 q, k, v (and dO) read, o (dq, dk, dv) written; the additive
+        # term f32 (K4a: its diagonal (T, T) blocks), its gradient written
+        qkv_bytes = q.numel() * elem
+        add_bytes = (H * nW * T * T * 4 if "packed" in name
+                     else (bias.numel() + mask.numel()) * 4)
+        fwd_bound = bound(4 * qkv_bytes + add_bytes, ops_fwd, BF16_OPS_PER_S)
+        bwd_bound = bound(7 * qkv_bytes + add_bytes + operands[3].numel() * 4, ops_bwd,
+                          BF16_OPS_PER_S)
+        say(f"[{name} bf16 fwd, stage 0: G={G} nW={nW} T={T} D={D}] rel_err={fwd_err:.3e} "
+            f"(max_abs_err={abs_fwd:.3e}) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"sdpa_bf16_ms={sdpa_fwd:.4f} bound_ms={fwd_bound[0]:.5f} ({fwd_bound[1]})")
+        say(f"[{name} bf16 bwd, stage 0: G={G} nW={nW} T={T} D={D}] rel_err "
+            + " ".join(f"{n}={e:.3e}" for n, e in rel.items())
+            + f" (max_abs_err={abs_bwd:.3e}) same_bits_on_rerun={same_bits} "
+            f"kernel_ms={bwd_ms:.4f} plain_ms={bwd_plain_ms:.4f} sdpa_bf16_bwd_ms={sdpa_bwd:.4f} "
+            f"bound_ms={bwd_bound[0]:.5f} ({bwd_bound[1]})")
+        if not fwd_err <= BF16_FWD_TOL:
+            raise AssertionError(f"{name} bf16 forward disagrees: {fwd_err}")
+        bad = {n: e for n, e in rel.items() if not e <= BF16_GRAD_TOL}
+        if bad or not same_bits:
+            raise AssertionError(f"{name} bf16 backward: {bad}, same bits {same_bits}")
+        entries[name] = {
+            "fwd": dict(max_abs_err=abs_fwd, ms=ms, plain_ms=plain_ms, bound_ms=fwd_bound[0],
+                        bound_by=fwd_bound[1], library_ms=sdpa_fwd),
+            "bwd": dict(max_abs_err=abs_bwd, ms=bwd_ms, plain_ms=bwd_plain_ms,
+                        bound_ms=bwd_bound[0], bound_by=bwd_bound[1], library_ms=sdpa_bwd),
+        }
+    say(f"[K4 bf16] sdpa backend in bf16 with a float attn_mask: {backend.name}")
+    del q, k, v, do, add
+
+    # the model's entry on a bf16 projection, read in place
+    Bw, C = B * nW, H * D
+    qkv = torch.randn(Bw, T, 3 * C, device="cuda", generator=gen).bfloat16()
+    dout = torch.randn(Bw, T, C, device="cuda", generator=gen).bfloat16()
+    for packed in (True, False):
+        with switched([(swa, "SWIN_KERNEL_PACKED", packed)]):
+            def run(entry):
+                leaves = [qkv.clone().requires_grad_(), bias.clone().requires_grad_()]
+                return leaves, entry(*leaves, mask, scale, H, n_windows=nW)
+
+            leaves, out = run(swa.swin_attention_qkv)
+            grads = torch.autograd.grad(out, leaves, dout, retain_graph=True)
+            again = torch.autograd.grad(out, leaves, dout, retain_graph=True)
+            ref_leaves, ref = run(swa.swin_attention_qkv_plain)
+            ref_grads = torch.autograd.grad(ref, ref_leaves, dout)
+            torch.cuda.synchronize()
+            fwd_err = rel_err(out, ref)
+            rel = {n: rel_err(a, b) for n, a, b in zip(("dqkv", "dbias"), grads, ref_grads)}
+            same_bits = all(torch.equal(a, b) for a, b in zip(grads, again))
+            with torch.no_grad():
+                ms = cuda_ms(torch, lambda: swa.swin_attention_qkv(qkv, bias, mask, scale, H,
+                                                                   n_windows=nW), reps=20)
+            bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(out, leaves, dout,
+                                                                retain_graph=True), reps=20)
+            del leaves, out, grads, again, ref_leaves, ref, ref_grads
+        name = "K4a packed" if packed else "K4b batched"
+        say(f"[{name} bf16 qkv entry, stage 0: qkv ({Bw}, {T}, {3 * C}) H={H}] "
+            f"rel_err={fwd_err:.3e} " + " ".join(f"{n}={e:.3e}" for n, e in rel.items())
+            + f" same_bits_on_rerun={same_bits} fwd_ms={ms:.4f} bwd_ms={bwd_ms:.4f}")
+        if not (fwd_err <= BF16_FWD_TOL and all(e <= BF16_GRAD_TOL for e in rel.values())
+                and same_bits):
+            raise AssertionError(f"{name} bf16 qkv entry: {fwd_err}, {rel}, {same_bits}")
+    del qkv, dout
+    torch.cuda.empty_cache()
+    return entries["K4a packed"]
+
+
+def phase_train_bf16(torch):
+    """The CvT-13 recipe on its card defaults (bf16, narrow_sm): 3 steps at
+    batch 112 and the in-train evaluation, K3's bf16 launches counted (no
+    f32 launch); then the bf16 and f32 steps in turns, and a profiled bf16
+    step (the same seed and batch)."""
+    from vit_reranking_tpu_torch.ops.attention import kv_resident_attention
+
+    torch.cuda.reset_peak_memory_stats()
+    summary, launches, wall = run_train(torch, TRAIN_BF16_ARGS, kv_resident_attention)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_eval = -(-8 * 48 // 112)
+    say(f"[train-bf16] peak memory {peak:.2f} GiB; expected K3 bf16 launches: fwd >= "
+        f"{3 + n_eval}, bwd 3, f32 none")
+    report_train("train-bf16", summary, wall, "K3", launches,
+                 launches["fwd_bf16"] >= 3 + n_eval and launches["bwd_bf16"] == 3
+                 and launches["fwd"] == launches["bwd"] == 0)
+    ab_and_profile(torch, "train-bf16", TRAIN_BF16_ARGS, {"bf16": [], "f32": []},
+                   ("bf16", "f32", "f32", "bf16"), ("bf16",),
+                   ("dkdv_kernel", "dq_kernel", "fwd_kernel", "delta_kernel"),
+                   flags={"f32": F32})
+    return {"fwd": launches["fwd_bf16"], "bwd": launches["bwd_bf16"]}
+
+
+def phase_swin_train_bf16(torch):
+    """Swin-T on its card defaults (bf16, narrow_sm) with the window kernels
+    on: 3 steps at batch 112 and the in-train evaluation through K4a's bf16
+    form (10 launches a pass), then one step and an evaluation batch through
+    K4b's; K4a against the materialising attention in bf16 and the bf16
+    step against the f32 one, in turns, and a profiled bf16 step."""
+    from vit_reranking_tpu_torch.models import swin
+    from vit_reranking_tpu_torch.ops import swin_attention as swa
+
+    n_eval = -(-8 * 48 // 112)
+    torch.cuda.reset_peak_memory_stats()
+    summary, launches, wall = run_swin_train(torch, 48, True, SWIN_TRAIN_BF16_ARGS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    say(f"[swin-train-bf16] peak memory {peak:.2f} GiB; expected K4a bf16 launches: fwd "
+        f"{10 * (3 + n_eval)}, bwd 30, f32 none")
+    report_train("swin-train-bf16", summary, wall, "K4a", launches,
+                 launches["fwd_bf16"] == 10 * (3 + n_eval) and launches["bwd_bf16"] == 30
+                 and launches["fwd"] == launches["bwd"] == 0)
+    summary_b, launches_b, wall_b = run_swin_train(torch, 14, False, SWIN_TRAIN_BF16_ARGS)
+    report_train("swin-train-bf16-batched", summary_b, wall_b, "K4b", launches_b,
+                 launches_b["fwd_bf16"] == 20 and launches_b["bwd_bf16"] == 10
+                 and launches_b["fwd"] == launches_b["bwd"] == 0, steps=1)
+    k4a = [(swin, "USE_SWIN_WINDOW_KERNEL", True), (swa, "SWIN_KERNEL_PACKED", True)]
+    ab_and_profile(torch, "swin-train-bf16", SWIN_TRAIN_BF16_ARGS + ["--synthetic_per_class", "14"],
+                   {"K4a packed": k4a, "off (materialising)": [(swin, "USE_SWIN_WINDOW_KERNEL", False)],
+                    "f32, K4a packed": k4a},
+                   ("K4a packed", "off (materialising)", "off (materialising)", "K4a packed",
+                    "f32, K4a packed", "f32, K4a packed", "K4a packed"),
+                   ("K4a packed",), ("fwd_kernel", "bwd_kernel", "reduce_add_kernel"),
+                   flags={"f32, K4a packed": F32})
+    return {"fwd": launches["fwd_bf16"], "bwd": launches["bwd_bf16"]}
+
+
+def phase_train_bf16_reference(torch):
+    """One bf16 (narrow_sm) step of full CvT-13 (drop-path 0) on the card
+    against the same step on the CPU, at the CPU tests' bf16 bars (loss
+    rtol 1e-2, gradient norm rtol 5e-2: the two devices round bf16 products
+    and sums in another order, 13 blocks deep, and K3 runs on the card
+    where the CPU runs its plain version)."""
+    from vit_reranking_tpu_torch.models.cvt import CvTNetwork, CvTSpec
+    from vit_reranking_tpu_torch.ops.attention import kv_resident_attention
+
+    base = CvTNetwork(embed_dim=128, spec=CvTSpec(drop_path_rate=(0.0, 0.0, 0.0)),
+                      generator=torch.Generator().manual_seed(0), dtype=torch.bfloat16,
+                      narrow_sm=True)
+    before = kv_resident_attention.fwd_bf16_launches
+    card_vs_cpu_step(torch, "train-bf16-reference", base,
+                     rtol={"loss": BF16_STEP_LOSS_RTOL, "grad_l2": BF16_STEP_GRAD_RTOL})
+    if kv_resident_attention.fwd_bf16_launches != before + 1:
+        raise AssertionError("the bf16 card step did not run K3's bf16 form at stage 0")
 
 
 VIT_ARGS = [
@@ -1353,6 +1690,11 @@ def main():
     k4b_launches = phase_swin_batched(torch)
     phase_swin_ab(torch)
     phase_swin_reference(torch)
+    k3_bf16 = phase_k3_bf16(torch)
+    k4a_bf16 = phase_k4_bf16(torch)
+    k3_bf16_launches = phase_train_bf16(torch)
+    phase_train_bf16_reference(torch)
+    k4a_bf16_launches = phase_swin_train_bf16(torch)
     k1_qk = phase_k1_large(torch)
     qk_launches = phase_vit(torch, "vit-qk", VIT_QK_ARGS)
     phase_vit(torch, "vit-featvit", VIT_ARGS)
@@ -1399,6 +1741,22 @@ def main():
              source="vit_reranking_tpu_torch/csrc/sinkhorn_score.cu",
              replaces="vit_reranking_tpu/ops/rerank_pallas.py:169",
              launches=sop_launches["sinkhorn_score_group"], **k1_group),
+        dict(name="kv_attention_fwd_bf16", route="cuda",
+             source="vit_reranking_tpu_torch/csrc/kv_attention.cu",
+             replaces="vit_reranking_tpu/ops/attention_pallas.py:48",
+             launches=k3_bf16_launches["fwd"], **k3_bf16["fwd"]),
+        dict(name="kv_attention_bwd_bf16", route="cuda",
+             source="vit_reranking_tpu_torch/csrc/kv_attention.cu",
+             replaces="vit_reranking_tpu/ops/attention_pallas.py:66",
+             launches=k3_bf16_launches["bwd"], **k3_bf16["bwd"]),
+        dict(name="swin_attention_packed_fwd_bf16", route="cuda",
+             source="vit_reranking_tpu_torch/csrc/swin_attention.cu",
+             replaces="vit_reranking_tpu/ops/swin_attention_pallas.py:218",
+             launches=k4a_bf16_launches["fwd"], **k4a_bf16["fwd"]),
+        dict(name="swin_attention_packed_bwd_bf16", route="cuda",
+             source="vit_reranking_tpu_torch/csrc/swin_attention.cu",
+             replaces="vit_reranking_tpu/ops/swin_attention_pallas.py:234",
+             launches=k4a_bf16_launches["bwd"], **k4a_bf16["bwd"]),
     ]
     say(f"[done] {time.perf_counter() - t_start:.3f}s in all")
     say(json.dumps({"kernels": kernels}))

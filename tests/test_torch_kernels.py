@@ -20,7 +20,9 @@ from run to run.  Kernels K4a and K4b (Swin window attention,
 versions, dbias/dadd included, at T 16 to 64 and D 8 to 64, through both
 contracts and through the qkv entry that reads the model's projection in
 place, and give bitwise the same dbias/dadd from run to run (fixed-order
-sums).
+sums).  Their bf16 forms (bf16 operands and gradients, f32 sums, the TPU
+kernels' rounding points) match their plain versions within 1e-2 (forward)
+and 2e-2 (gradients) of the largest magnitude, and repeat their bits.
 """
 
 import numpy as np
@@ -550,3 +552,110 @@ def test_swin_kernels_refuse_what_they_do_not_take(cuda):
     q = torch.zeros(2, 4, 16, 12, device=cuda)  # D 12
     with pytest.raises(ValueError):
         swa.swin_window_attention(q, q, q, torch.zeros(1, 16, 16, device=cuda), None, 0.1)
+
+
+# ---- the bf16 forms of K3 and K4 (bf16 operands, f32 sums) ---------------------
+#
+# Against their plain versions, which carry the kernels' rounding points: the
+# two sides round p and ds to bf16 from f32 values summed in another order,
+# so a value can land one bf16 step apart (2^-8 relative); forward within
+# 1e-2 and gradients within 2e-2 of their largest magnitude, dk/dv and
+# dbias/dadd the same bits from run to run.
+
+BF16_FWD_TOL, BF16_GRAD_TOL = 1e-2, 2e-2
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+
+@pytest.mark.parametrize("BH,T,Tkv", [(2, 3136, 784), (3, 100, 50), (2, 64, 13)],
+                         ids=["stage0", "ragged", "tkv13"])
+def test_kv_attention_bf16_kernel_matches_plain_on_card(cuda, BH, T, Tkv):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, do = (torch.randn(BH, T, 64, device=cuda, generator=gen).bfloat16() for _ in range(2))
+    k, v = (torch.randn(BH, Tkv, 64, device=cuda, generator=gen).bfloat16() for _ in range(2))
+    f = kv_resident_attention
+    before = (f.fwd_launches, f.bwd_launches, f.fwd_bf16_launches, f.bwd_bf16_launches)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = kv_resident_attention(*leaves, 0.125)
+    grads = torch.autograd.grad(out, leaves, do, retain_graph=True)
+    again = torch.autograd.grad(out, leaves, do)
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = kv_resident_attention_plain(*ref_leaves, 0.125)
+    ref_grads = torch.autograd.grad(ref, ref_leaves, do)
+    torch.cuda.synchronize()
+    assert (f.fwd_launches, f.bwd_launches, f.fwd_bf16_launches, f.bwd_bf16_launches) == (
+        before[0], before[1], before[2] + 1, before[3] + 2)
+    assert out.dtype == torch.bfloat16 and _rel(out, ref) <= BF16_FWD_TOL
+    for a, b, c, name in zip(grads, ref_grads, again, ("dq", "dk", "dv")):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a).all(), name
+        assert _rel(a, b) <= BF16_GRAD_TOL, name
+        assert torch.equal(a, c), name
+
+
+def test_kv_attention_bf16_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 16, 128, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        kv_resident_attention(q, q, q, 0.1)  # D 128 in bf16
+    q = torch.zeros(1, 16, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        kv_resident_attention(q, q.float(), q, 0.1)  # mixed dtypes
+    assert cvt_attention(torch.zeros(1, 2, 784, 128, device=cuda, dtype=torch.bfloat16),
+                         *[torch.zeros(1, 2, 784, 128, device=cuda, dtype=torch.bfloat16)] * 2,
+                         0.1) is None
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["K4a-packed", "K4b-batched"])
+@pytest.mark.parametrize("G,nW,T,D,H,with_mask", SWIN_CASES, ids=SWIN_IDS)
+def test_swin_bf16_kernels_match_plain_on_card(cuda, packed, G, nW, T, D, H, with_mask):
+    q, k, v, do, bias, mask = _swin_inputs(cuda, G, nW, T, D, H, with_mask)
+    q, k, v, do = (t.bfloat16() for t in (q, k, v, do))
+    mask = _swin_mask(cuda, nW, T, mask)
+    fn = swa.swin_window_attention_packed if packed else swa.swin_window_attention
+    scale = D ** -0.5
+    before = (fn.fwd_bf16_launches, fn.bwd_bf16_launches, fn.fwd_launches)
+    out, grads = _swin_run(fn, q, k, v, do, bias, mask, scale)
+    ref, ref_grads = _swin_run(swa.swin_window_attention_plain, q, k, v, do, bias, mask, scale)
+    torch.cuda.synchronize()
+    assert (fn.fwd_bf16_launches, fn.bwd_bf16_launches, fn.fwd_launches) == (
+        before[0] + 1, before[1] + 1, before[2])
+    assert out.dtype == torch.bfloat16 and _rel(out, ref) <= BF16_FWD_TOL
+    for a, b, name in zip(grads, ref_grads, ("dq", "dk", "dv", "dbias")):
+        assert torch.isfinite(a).all(), name
+        assert _rel(a, b) <= BF16_GRAD_TOL, name
+    assert grads[3].dtype == torch.float32
+    _, again = _swin_run(fn, q, k, v, do, bias, mask, scale)
+    for a, b in zip(again, grads):
+        assert torch.equal(a, b)  # dq, dk, dv and dbias the same bits from run to run
+
+
+@pytest.mark.parametrize("packed", [True, False], ids=["K4a-packed", "K4b-batched"])
+@pytest.mark.parametrize("G,nW,T,D,H,with_mask", SWIN_CASES[:3], ids=SWIN_IDS[:3])
+def test_swin_bf16_qkv_entry_matches_plain_on_card(cuda, monkeypatch, packed, G, nW, T, D, H,
+                                                   with_mask):
+    """The qkv entry on a bf16 projection (the model's layout, read in
+    place): against its plain version, one bf16 launch each way."""
+    monkeypatch.setattr(swa, "SWIN_KERNEL_PACKED", packed)
+    _, _, _, _, bias, mask = _swin_inputs(cuda, H, nW, T, D, H, with_mask)
+    mask = _swin_mask(cuda, nW, T, mask)
+    Bw, C = (G // H) * nW, H * D
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    qkv = torch.randn(Bw, T, 3 * C, device=cuda, generator=gen).bfloat16()
+    do = torch.randn(Bw, T, C, device=cuda, generator=gen).bfloat16()
+    fn = swa.swin_window_attention_packed if packed else swa.swin_window_attention
+
+    def run(entry):
+        leaves = [t.clone().requires_grad_() for t in (qkv, bias)]
+        out = entry(*leaves, mask, D ** -0.5, H, n_windows=nW)
+        return out, torch.autograd.grad(out, leaves, do)
+
+    before = (fn.fwd_bf16_launches, fn.bwd_bf16_launches)
+    out, grads = run(swa.swin_attention_qkv)
+    ref, ref_grads = run(swa.swin_attention_qkv_plain)
+    torch.cuda.synchronize()
+    assert (fn.fwd_bf16_launches, fn.bwd_bf16_launches) == (before[0] + 1, before[1] + 1)
+    assert out.dtype == grads[0].dtype == torch.bfloat16 and out.shape == (Bw, T, C)
+    assert _rel(out, ref) <= BF16_FWD_TOL
+    for a, b, name in zip(grads, ref_grads, ("dqkv", "dbias")):
+        assert _rel(a, b) <= BF16_GRAD_TOL, name

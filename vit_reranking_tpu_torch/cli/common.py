@@ -23,13 +23,14 @@ from ..engine.train import TrainState, init_train_state, make_optimizer, train_s
 UNPORTED = ("cache_device", "mesh_shape", "resume_path", "checkpoint_every_steps")
 
 
-def refuse_unported(opt: Config, what: str) -> None:
+def refuse_unported(opt: Config, what: str, reduced_precision: bool = False) -> None:
     """Raise ``NotImplementedError`` naming the first option of ``opt`` whose
-    effect the port lacks (bf16 and narrow-softmax models, the device image
-    cache, meshes, checkpoint loading, step checkpoints), rather than parse
-    it and run without it.  ``what`` says what the CLI does in f32
-    ("trains", "evaluates")."""
-    for flag in ("bf16", "narrow_sm"):
+    effect the port lacks (the device image cache, meshes, checkpoint
+    loading, step checkpoints; bf16 and the narrowed softmax unless
+    ``reduced_precision``, which training has and evaluation does not),
+    rather than parse it and run without it.  ``what`` says what the CLI
+    does in f32 ("evaluates")."""
+    for flag in () if reduced_precision else ("bf16", "narrow_sm"):
         if getattr(opt, flag):
             raise NotImplementedError(
                 f"--{flag} is not ported yet: the port {what} in f32")

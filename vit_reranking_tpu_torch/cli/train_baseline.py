@@ -1,12 +1,16 @@
 """Step-1 global-embedding DML training (reference train_baseline.py).
 
-Port of vit_reranking_tpu/cli/train_baseline.py for one card, in f32: the
-same flags and loop shape (per-epoch training with mining and loss, eval
-every ``--evalevery`` epochs: test-set embedding -> N x N cosine with
+Port of vit_reranking_tpu/cli/train_baseline.py for one card: the same
+flags and loop shape (per-epoch training with mining and loss, eval every
+``--evalevery`` epochs: test-set embedding -> N x N cosine with
 self-masking -> R@1 / RP / MAP@R, best-checkpoint copy on R@1, patience
-early stop).  The model is randomly initialised from ``--seed``.  Options
-the port does not have yet (bf16 and narrow-softmax training, the device
-image cache, meshes, resuming, step checkpoints) raise.
+early stop).  The model is randomly initialised from ``--seed``.  The
+precision is the JAX package's default: on the card, CvT and Swin train
+with bf16 activations and the narrowed softmax (f32 parameters, BatchNorm
+statistics, Adam state, LayerNorms and head); ``--no-bf16`` trains in f32,
+as every run on the CPU does (``core/config.py::resolve_precision``).
+Options the port does not have yet (the device image cache, meshes,
+resuming, step checkpoints) raise.
 
     python -m vit_reranking_tpu_torch.cli.train_baseline --dataset synthetic \
         --arch cvt_13_normalize --loss margin --batch_mining distance \
@@ -22,7 +26,7 @@ import numpy as np
 import torch
 
 from ..core.checkpoint import copy_best, save_checkpoint
-from ..core.config import from_args
+from ..core.config import from_args, resolve_precision
 from ..core.logger import RunLogger
 from ..data.loader import build_dataset
 from ..engine.extract import extract_features
@@ -80,13 +84,18 @@ def main(argv=None) -> Dict[str, object]:
     card to the end of the optimizer update) and each evaluation's metrics.
     Losses stay on the device until the epoch ends, as in the JAX package:
     no step waits for the host."""
-    opt = from_args(argv)
-    refuse_unported(opt, "trains")
+    opt = resolve_precision(from_args(argv))
+    refuse_unported(opt, "trains", reduced_precision=True)
     device = torch.device(opt.device)
     # f32 products and convolutions in full f32, as the JAX package pins
-    # Precision.HIGHEST on its parity-critical contractions
+    # Precision.HIGHEST on its parity-critical contractions; bf16 products
+    # accumulate in f32, as the JAX package's do
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    print("[train_baseline] precision: "
+          + ("bf16 activations, f32 parameters" if opt.bf16 else "f32")
+          + (", narrowed softmax" if opt.bf16 and opt.narrow_sm else ""))
     seed_everything(opt.seed, debug=opt.debug)
 
     loaders, _ = build_dataset(opt)

@@ -81,9 +81,12 @@ class Config:
     use_qk: bool = False  # ViT attention-marginal rerank (eval_attn_diml path)
     # stream the rerank kernel's similarity tensor in bf16 (loop math f32)
     rerank_bf16: bool = False
-    # bf16 activation training and the narrowed softmax.  Tri-state as in the
-    # JAX package, whose CLI turns both off away from the TPU; the port
-    # trains f32 and refuses True (bf16 training is later work).
+    # bf16 activations (f32 parameters, BatchNorm statistics, LayerNorms and
+    # head) and the narrowed softmax (materialised attention scores in bf16).
+    # Tri-state as in the JAX package: None takes the training CLI's default,
+    # resolve_precision (on the card, bf16 for the arches the JAX package
+    # trains in bf16 on its accelerator; f32 on the CPU); narrow_sm follows
+    # bf16.  The evaluation CLI refuses both.
     bf16: Optional[bool] = None
     narrow_sm: Optional[bool] = None
     # JAX package options the port does not have yet: setting one raises
@@ -117,3 +120,24 @@ def build_parser() -> argparse.ArgumentParser:
 def from_args(argv: Optional[Sequence[str]] = None) -> Config:
     args = build_parser().parse_args(argv)
     return Config(**vars(args))
+
+
+def resolve_precision(opt: Config) -> Config:
+    """``opt`` with ``bf16`` and ``narrow_sm`` resolved where they are None,
+    as the JAX package's training CLI resolves them
+    (vit_reranking_tpu/cli/train_baseline.py:67-92), with "the device is
+    CUDA" in place of "the backend is a TPU": bf16 for ``cvt*`` (not
+    ``*diml*``), ``resnet50*``, ``irresnet50*``, ``vit*``/``deit*`` and
+    ``*swin*`` on the card, f32 elsewhere and on the CPU; ``narrow_sm``
+    follows ``bf16``.  An explicit ``--bf16``/``--no-bf16`` (or
+    ``--narrow_sm``/``--no-narrow_sm``) stands."""
+    if opt.bf16 is None:
+        a = opt.arch
+        on_card = opt.device.split(":")[0] == "cuda"
+        opt = opt.replace(bf16=on_card and (
+            (a.startswith("cvt") and "diml" not in a)
+            or a.startswith(("resnet50", "irresnet50", "vit", "deit"))
+            or "swin" in a))
+    if opt.narrow_sm is None:
+        opt = opt.replace(narrow_sm=bool(opt.bf16))
+    return opt

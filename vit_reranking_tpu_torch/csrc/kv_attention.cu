@@ -1,5 +1,6 @@
 // KV-resident attention, softmax(q k^T * scale) v, forward and backward, on
-// Hopper (sm_90a), f32 in and out, products on the tensor cores.
+// Hopper (sm_90a), f32 in and out, products on the tensor cores; its bf16
+// form (bf16 in and out, D = 64) is the section "bf16" below.
 //
 // Replaces the TPU kernels vit_reranking_tpu/ops/attention_pallas.py::
 // _fwd_kernel (:48, launched by _fwd :131) and _bwd_kernel (:66, launched by
@@ -68,6 +69,7 @@
 //   D = 128 and 192 each 64-column group of dK/dV/dQ is its own block, which
 //   recomputes the scores: the accumulators then fit the registers.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -692,6 +694,494 @@ bool misaligned(std::initializer_list<const void*> ptrs) {
   return false;
 }
 
+
+// ---- bf16 -------------------------------------------------------------------
+//
+// The bf16 form of K3 (q, k, v, o, dq, dk, dv bf16; lse and delta f32), at
+// D = 64, the head dim of every CvT-13 stage.  The TPU kernel's rounding
+// points are kept, not a flash-style online softmax: the scores and the
+// softmax are f32 (bf16 products summed in f32), p is normalised in f32 and
+// then rounded to bf16 before P V (attention_pallas.py:58-59), and in the
+// backward dp is f32, ds = p (dp - rowsum(dp p)) scale is f32 and rounded to
+// bf16 before dS K and dS^T Q, p is rounded before P^T dO, and dQ, dK and dV
+// are summed in f32 and rounded once (attention_pallas.py:66-111).
+//
+// Products: mma.sync m16n8k16 with bf16 operands and f32 accumulators, one
+// product an operand pair (bf16 needs no hi/lo split).  A score tile leaves
+// mma in the accumulator layout (c0 c1: row g, columns 2t, 2t + 1; c2 c3:
+// row g + 8), which is the A operand's layout for k = 2t, 2t + 1 (a0, a1)
+// and k = 2t + 8, 2t + 9 (a2, a3) once two adjacent n-tiles are packed to
+// bf16 pairs, so P and dS feed their products from registers.  Shared rows
+// are 64 + 8 bf16 (144 bytes) apart: every fragment load of a warp touches
+// 32 distinct banks.
+//
+// forward: one block per (64 q rows, head), 4 warps of 16 rows; the kv tiles
+//   are streamed twice through a two-stage cp.async ring: the first pass
+//   takes each row's max and sum (m, l), the second recomputes S, forms
+//   p = exp(s - m) / l, rounds it to bf16 and accumulates O += P V.
+// backward, with no float atomics (the same bits run to run):
+//   one block per (64 q rows, head) streams the kv tiles twice: the first
+//     pass sums delta = rowsum(dp p) over the whole row (the TPU kernel's
+//     softmax vjp, not dO . O, which would carry O's bf16 rounding), the
+//     second forms dS and accumulates dQ += dS K; it writes dq and delta;
+//   one block per (64 kv rows, head) streams the q tiles with lse and delta,
+//     recomputes S^T and dP^T = V dO^T, and accumulates dV += P^T dO and
+//     dK += dS^T Q in f32.
+// The work is 3 units of T Tkv D products forward and 9 backward (5 in the
+// dQ pass, 4 in the dK/dV pass), against 2 and 4 of a single-pass layout:
+// the price of the TPU kernel's rounding points with the kv block streamed.
+//
+// What bounds it: operations.  At CvT-13 stage 0 (BH = 112) the forward's
+// function is 7.05e10 flop against 0.11 GB of bf16 q, k, v and o (0.071 ms
+// at 989 TFLOP/s dense bf16, 0.034 ms at 3.35 TB/s), the backward's 1.76e11
+// flop (0.178 ms).  mma.sync reaches about two thirds of the dense rate on
+// an H100 (wgmma the rest), and the exponentials (one a score a pass, 2 and
+// 3 passes) run on the SFU beside the products.
+
+namespace b16 {
+
+using bf16 = __nv_bfloat16;
+constexpr int kD = 64;       // the head dim of the bf16 kernels
+constexpr int kS = kD + 8;   // shared row stride, in bf16
+constexpr int kNK = kD / 16; // k-steps over d
+constexpr int kND = kD / 8;  // n-tiles over d
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (lo, hi) rounded to bf16 (to nearest even) as one register, lo in the low half
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// two bf16 of one column, rows p and p + S, as one register
+template <int S>
+__device__ __forceinline__ uint32_t ld_col2(const bf16* p) {
+  const uint32_t lo = *reinterpret_cast<const uint16_t*>(p);
+  const uint32_t hi = *reinterpret_cast<const uint16_t*>(p + S);
+  return lo | (hi << 16);
+}
+
+struct FragA {
+  uint32_t r[4];
+};
+
+// The A operand at rows r0.., columns c0.. of a row-major shared tile.
+template <int S>
+__device__ __forceinline__ FragA load_a(const bf16* s, int r0, int c0, int g, int t) {
+  const bf16* p = s + (r0 + g) * S + c0 + 2 * t;
+  return FragA{{ld32(p), ld32(p + 8 * S), ld32(p + 8), ld32(p + 8 * S + 8)}};
+}
+
+// B of x y^T: element (k, n) is s[n0 + n][k0 + k].
+template <int S>
+__device__ __forceinline__ void load_b_nk(const bf16* s, int n0, int k0, int g, int t,
+                                          uint32_t& b0, uint32_t& b1) {
+  const bf16* p = s + (n0 + g) * S + k0 + 2 * t;
+  b0 = ld32(p);
+  b1 = ld32(p + 8);
+}
+
+// B of x y: element (k, n) is s[k0 + k][n0 + n].
+template <int S>
+__device__ __forceinline__ void load_b_kn(const bf16* s, int k0, int n0, int g, int t,
+                                          uint32_t& b0, uint32_t& b1) {
+  const bf16* p = s + (k0 + 2 * t) * S + n0 + g;
+  b0 = ld_col2<S>(p);
+  b1 = ld_col2<S>(p + 8 * S);
+}
+
+// Accumulator n-tiles 2 kk and 2 kk + 1 (f32) as a bf16 A operand, each
+// value times mul[row half] first.
+template <int N>
+__device__ __forceinline__ FragA acc_as_a(const float (&c)[N][4], int kk, float m0, float m1) {
+  const float* x = c[2 * kk];
+  const float* y = c[2 * kk + 1];
+  return FragA{{pack(x[0] * m0, x[1] * m0), pack(x[2] * m1, x[3] * m1),
+                pack(y[0] * m0, y[1] * m0), pack(y[2] * m1, y[3] * m1)}};
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[j][e] = 0.0f;
+}
+
+// Rows [row0, row0 + R) of a (rows, 64) bf16 matrix into an R x kS shared
+// tile; rows past the end zero-filled.  A row of 64 bf16 is 32 floats and
+// kS bf16 are 36 floats, so this is copy_tile<32, R> on the same bytes.
+template <int R>
+__device__ __forceinline__ void copy_rows(bf16* s, const bf16* __restrict__ g, int row0,
+                                          int rows) {
+  copy_tile<kD / 2, R>(reinterpret_cast<float*>(s), reinterpret_cast<const float*>(g), row0,
+                       rows);
+}
+
+// S = x y^T over d for NJ n-tiles of 8 streamed rows, x from registers.
+template <int NJ>
+__device__ __forceinline__ void scores(float (&s)[NJ][4], const FragA (&x)[kNK], const bf16* y,
+                                       int g, int t) {
+  zero(s);
+#pragma unroll
+  for (int kk = 0; kk < kNK; ++kk)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      uint32_t b0, b1;
+      load_b_nk<kS>(y, 8 * j, 16 * kk, g, t, b0, b1);
+      mma(s[j], x[kk].r, b0, b1);
+    }
+}
+
+// acc += x y: x (16 x 8 NJ, accumulator layout, times m0 / m1 by row half,
+// rounded to bf16) times the NJ 8 x 64 shared rows y.
+template <int NJ>
+__device__ __forceinline__ void accumulate(float (&acc)[kND][4], const float (&x)[NJ][4],
+                                           const bf16* y, float m0, float m1, int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < NJ / 2; ++kk) {
+    const FragA a = acc_as_a(x, kk, m0, m1);
+#pragma unroll
+    for (int n = 0; n < kND; ++n) {
+      uint32_t b0, b1;
+      load_b_kn<kS>(y, 16 * kk, 8 * n, g, t, b0, b1);
+      mma(acc[n], a.r, b0, b1);
+    }
+  }
+}
+
+// Rows row, row + 8 (< rows) of a (rows, 64) bf16 matrix from acc.
+__device__ __forceinline__ void store_rows(bf16* __restrict__ out, const float (&acc)[kND][4],
+                                           int row, int rows, int t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row + 8 * h >= rows) continue;
+    bf16* p = out + (long long)(row + 8 * h) * kD + 2 * t;
+#pragma unroll
+    for (int n = 0; n < kND; ++n)
+      *reinterpret_cast<uint32_t*>(p + 8 * n) = pack(acc[n][2 * h], acc[n][2 * h + 1]);
+  }
+}
+
+constexpr int kFwdRows = 64;  // kv rows a streamed tile, forward and dQ pass
+constexpr int kDkdvRows = 32; // q rows a streamed tile, dK/dV pass
+
+constexpr size_t fwd_smem() { return (size_t)(kRows + 2 * 2 * kFwdRows) * kS * sizeof(bf16); }
+
+__global__ void __launch_bounds__(kThreads)
+    fwd_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                    int T, int Tkv, float scale) {
+  constexpr int BC = kFwdRows, NC = BC / 8;
+  extern __shared__ float4 smem4[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem4);
+  bf16* sKV = sQ + kRows * kS;  // two stages of K and V, each BC x kS
+
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * kRows;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int wr = (threadIdx.x / 32) * 16;
+  const bf16* kb = k + (long long)bh * Tkv * kD;
+  const bf16* vb = v + (long long)bh * Tkv * kD;
+  const int ntiles = (Tkv + BC - 1) / BC;
+  const int steps = 2 * ntiles;  // pass 1: K tiles; pass 2: K and V tiles
+  const float scale_log2 = scale * kLog2e;
+
+  auto fetch = [&](int step) {
+    bf16* buf = sKV + (step & 1) * 2 * BC * kS;
+    const int i = step % ntiles;
+    copy_rows<BC>(buf, kb, i * BC, Tkv);
+    if (step >= ntiles) copy_rows<BC>(buf + BC * kS, vb, i * BC, Tkv);
+  };
+  copy_rows<kRows>(sQ, q + (long long)bh * T * kD, q0, T);
+  fetch(0);
+  cp_commit();
+
+  FragA qf[kNK];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f}, inv[2] = {0.0f, 0.0f};
+  float acc[kND][4];
+  zero(acc);
+
+  for (int it = 0; it < steps; ++it) {
+    const bf16* sK = sKV + (it & 1) * 2 * BC * kS;
+    const bf16* sV = sK + BC * kS;
+    if (it + 1 < steps) fetch(it + 1);
+    cp_commit();
+    cp_wait_all_but_newest();
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < kNK; ++kk) qf[kk] = load_a<kS>(sQ, wr, 16 * kk, g, t);
+    }
+    if (it == ntiles) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) inv[h] = 1.0f / l[h];
+    }
+
+    // scores in base 2 (scale carries log2(e)); columns past Tkv are -inf
+    float s[NC][4];
+    scores(s, qf, sK, g, t);
+    const int k0 = (it % ntiles) * BC;
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[j][e] = k0 + 8 * j + 2 * t + (e & 1) < Tkv ? s[j][e] * scale_log2 : -INFINITY;
+
+    if (it < ntiles) {
+      // pass 1: running max and sum; every tile starts inside the kv rows,
+      // so each row's max is finite from the first tile on
+      float mx[2] = {m[0], m[1]}, rs[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) mx[h] = quad_max(mx[h]);
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) rs[e >> 1] += exp2f(s[j][e] - mx[e >> 1]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        l[h] = l[h] * exp2f(m[h] - mx[h]) + quad_sum(rs[h]);
+        m[h] = mx[h];
+      }
+    } else {
+      // pass 2: p = exp(s - m) / l in f32, rounded to bf16; O += P V
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float& p = s[j][e];
+          p = exp2f(p - m[e >> 1]);
+        }
+      accumulate(acc, s, sV, inv[0], inv[1], g, t);
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  const int row = q0 + wr + g;
+  store_rows(o + (long long)bh * T * kD, acc, row, T, t);
+  if (t == 0)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (row + 8 * h < T) lse[(long long)bh * T + row + 8 * h] = logf(l[h]) + m[h] * kLn2;
+}
+
+constexpr size_t dq_smem() { return (size_t)(2 * kRows + 2 * 2 * kFwdRows) * kS * sizeof(bf16); }
+
+// dQ and delta: grid (q tiles, BH).
+__global__ void __launch_bounds__(kThreads)
+    dq_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                   const float* __restrict__ lse, float* __restrict__ delta,
+                   bf16* __restrict__ dq, int T, int Tkv, float scale) {
+  constexpr int BC = kFwdRows, NC = BC / 8;
+  extern __shared__ float4 smem4[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem4);
+  bf16* sdO = sQ + kRows * kS;
+  bf16* sKV = sdO + kRows * kS;  // two stages of K and V, each BC x kS
+
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * kRows;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int wr = (threadIdx.x / 32) * 16;
+  const bf16* kb = k + (long long)bh * Tkv * kD;
+  const bf16* vb = v + (long long)bh * Tkv * kD;
+  const int ntiles = (Tkv + BC - 1) / BC;
+  const int steps = 2 * ntiles;  // pass 1: delta; pass 2: dQ
+
+  auto fetch = [&](int step) {
+    bf16* buf = sKV + (step & 1) * 2 * BC * kS;
+    const int i = step % ntiles;
+    copy_rows<BC>(buf, kb, i * BC, Tkv);
+    copy_rows<BC>(buf + BC * kS, vb, i * BC, Tkv);
+  };
+  copy_rows<kRows>(sQ, q + (long long)bh * T * kD, q0, T);
+  copy_rows<kRows>(sdO, dout + (long long)bh * T * kD, q0, T);
+  fetch(0);
+  cp_commit();
+
+  const int row = q0 + wr + g;
+  float lse_r[2], dsum[2] = {0.0f, 0.0f}, delta_r[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) lse_r[h] = row + 8 * h < T ? lse[(long long)bh * T + row + 8 * h] : 0.0f;
+  FragA qf[kNK], of[kNK];
+  float acc[kND][4];
+  zero(acc);
+
+  for (int it = 0; it < steps; ++it) {
+    const bf16* sK = sKV + (it & 1) * 2 * BC * kS;
+    const bf16* sV = sK + BC * kS;
+    if (it + 1 < steps) fetch(it + 1);
+    cp_commit();
+    cp_wait_all_but_newest();
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < kNK; ++kk) {
+        qf[kk] = load_a<kS>(sQ, wr, 16 * kk, g, t);
+        of[kk] = load_a<kS>(sdO, wr, 16 * kk, g, t);
+      }
+    }
+    if (it == ntiles) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) delta_r[h] = quad_sum(dsum[h]);
+    }
+
+    // p = exp(s scale - lse), 0 in kv columns past Tkv; dp = dO V^T
+    float p[NC][4], dp[NC][4];
+    scores(p, qf, sK, g, t);
+    scores(dp, of, sV, g, t);
+    const int k0 = (it % ntiles) * BC;
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        p[j][e] = k0 + 8 * j + 2 * t + (e & 1) < Tkv ? expf(p[j][e] * scale - lse_r[e >> 1])
+                                                     : 0.0f;
+    if (it < ntiles) {
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dsum[e >> 1] = fmaf(dp[j][e], p[j][e], dsum[e >> 1]);
+    } else {
+      // dS = p (dp - delta) scale, rounded to bf16; dQ += dS K
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[j][e] = p[j][e] * (dp[j][e] - delta_r[e >> 1]) * scale;
+      accumulate(acc, dp, sK, 1.0f, 1.0f, g, t);
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  store_rows(dq + (long long)bh * T * kD, acc, row, T, t);
+  if (t == 0)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (row + 8 * h < T) delta[(long long)bh * T + row + 8 * h] = delta_r[h];
+}
+
+// bytes of one stage of the dK/dV pass: Q and dO tiles, then lse and delta
+constexpr int kDkdvStage = 2 * kDkdvRows * kS * sizeof(bf16) + 2 * kDkdvRows * sizeof(float);
+constexpr size_t dkdv_smem() { return (size_t)2 * kRows * kS * sizeof(bf16) + 2 * kDkdvStage; }
+
+// dK and dV: grid (kv tiles, BH).
+__global__ void __launch_bounds__(kThreads)
+    dkdv_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, int T, int Tkv, float scale) {
+  constexpr int BQ = kDkdvRows, NQ = BQ / 8;
+  extern __shared__ float4 smem4[];
+  bf16* sK = reinterpret_cast<bf16*>(smem4);
+  bf16* sV = sK + kRows * kS;
+  unsigned char* stages = reinterpret_cast<unsigned char*>(sV + kRows * kS);
+
+  const int bh = blockIdx.y;
+  const int kv0 = blockIdx.x * kRows;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int wr = (threadIdx.x / 32) * 16;
+  const bf16* qb = q + (long long)bh * T * kD;
+  const bf16* dob = dout + (long long)bh * T * kD;
+  const float* lseb = lse + (long long)bh * T;
+  const float* deltab = delta + (long long)bh * T;
+  const int ntiles = (T + BQ - 1) / BQ;
+
+  auto stage = [&](int it) { return stages + (it & 1) * kDkdvStage; };
+  auto fetch = [&](int it) {
+    bf16* sQ = reinterpret_cast<bf16*>(stage(it));
+    float* sL = reinterpret_cast<float*>(sQ + 2 * BQ * kS);
+    copy_rows<BQ>(sQ, qb, it * BQ, T);
+    copy_rows<BQ>(sQ + BQ * kS, dob, it * BQ, T);
+    copy_vec<BQ>(sL, lseb, it * BQ, T);
+    copy_vec<BQ>(sL + BQ, deltab, it * BQ, T);
+  };
+  copy_rows<kRows>(sK, k + (long long)bh * Tkv * kD, kv0, Tkv);
+  copy_rows<kRows>(sV, v + (long long)bh * Tkv * kD, kv0, Tkv);
+  fetch(0);
+  cp_commit();
+
+  FragA kf[kNK], vf[kNK];
+  float dk_acc[kND][4], dv_acc[kND][4];
+  zero(dk_acc);
+  zero(dv_acc);
+
+  for (int it = 0; it < ntiles; ++it) {
+    const bf16* sQ = reinterpret_cast<const bf16*>(stage(it));
+    const bf16* sdO = sQ + BQ * kS;
+    const float* sL = reinterpret_cast<const float*>(sQ + 2 * BQ * kS);
+    const float* sDelta = sL + BQ;
+    if (it + 1 < ntiles) fetch(it + 1);
+    cp_commit();
+    cp_wait_all_but_newest();
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < kNK; ++kk) {
+        kf[kk] = load_a<kS>(sK, wr, 16 * kk, g, t);
+        vf[kk] = load_a<kS>(sV, wr, 16 * kk, g, t);
+      }
+    }
+    const int q0 = it * BQ;
+
+    // P^T = exp(K Q^T scale - lse), 0 in q columns past T; dP^T = V dO^T
+    float p[NQ][4], dp[NQ][4];
+    scores(p, kf, sQ, g, t);
+    scores(dp, vf, sdO, g, t);
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * t + (e & 1);
+        p[j][e] = q0 + col < T ? expf(p[j][e] * scale - sL[col]) : 0.0f;
+        dp[j][e] = p[j][e] * (dp[j][e] - sDelta[col]) * scale;
+      }
+    accumulate(dv_acc, p, sdO, 1.0f, 1.0f, g, t);   // dV += P^T dO
+    accumulate(dk_acc, dp, sQ, 1.0f, 1.0f, g, t);   // dK += dS^T Q
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  const int row = kv0 + wr + g;
+  store_rows(dk + (long long)bh * Tkv * kD, dk_acc, row, Tkv, t);
+  store_rows(dv + (long long)bh * Tkv * kD, dv_acc, row, Tkv, t);
+}
+
+int fwd(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse, int BH, int T,
+        int Tkv, float scale, cudaStream_t st) {
+  cudaError_t err = allow_smem(fwd_kernel_bf16, fwd_smem());
+  if (err != cudaSuccess) return err;
+  fwd_kernel_bf16<<<dim3(blocks(T), BH), kThreads, fwd_smem(), st>>>(q, k, v, o, lse, T, Tkv,
+                                                                      scale);
+  return cudaGetLastError();
+}
+
+int bwd(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, const float* lse,
+        float* delta, bf16* dq, bf16* dk, bf16* dv, int BH, int T, int Tkv, float scale,
+        cudaStream_t st) {
+  cudaError_t err = allow_smem(dq_kernel_bf16, dq_smem());
+  if (err != cudaSuccess) return err;
+  dq_kernel_bf16<<<dim3(blocks(T), BH), kThreads, dq_smem(), st>>>(q, k, v, dout, lse, delta,
+                                                                    dq, T, Tkv, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = allow_smem(dkdv_kernel_bf16, dkdv_smem())) != cudaSuccess) return err;
+  dkdv_kernel_bf16<<<dim3(blocks(Tkv), BH), kThreads, dkdv_smem(), st>>>(
+      q, k, v, dout, lse, delta, dk, dv, T, Tkv, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace b16
+
 }  // namespace
 
 // q, o: (BH, T, D); k, v: (BH, Tkv, D); lse: (BH, T).  All f32, contiguous,
@@ -723,4 +1213,33 @@ extern "C" int kv_attention_bwd(const float* q, const float* k, const float* v, 
     case 192: return bwd<192>(q, k, v, o, dout, lse, delta, dq, dk, dv, BH, T, Tkv, scale, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The bf16 form: q, k, v, o, dout, dq, dk, dv bf16 in the f32 entries'
+// layouts, D = 64; lse and delta f32.  q, k, v, dout 16-byte aligned.
+// Returns a cudaError_t.
+extern "C" int kv_attention_fwd_bf16(const void* q, const void* k, const void* v, void* o,
+                                     float* lse, int BH, int T, int Tkv, int D, float scale,
+                                     void* stream) {
+  using b16::bf16;
+  if (bad_shape(BH, T, Tkv) || D != b16::kD || misaligned({q, k, v}))
+    return cudaErrorInvalidValue;
+  return b16::fwd(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, BH, T, Tkv, scale,
+                  static_cast<cudaStream_t>(stream));
+}
+
+// o is not read: delta is summed from dp and p, as the TPU kernel sums it.
+extern "C" int kv_attention_bwd_bf16(const void* q, const void* k, const void* v, const void* o,
+                                     const void* dout, const float* lse, float* delta, void* dq,
+                                     void* dk, void* dv, int BH, int T, int Tkv, int D,
+                                     float scale, void* stream) {
+  using b16::bf16;
+  (void)o;
+  if (bad_shape(BH, T, Tkv) || D != b16::kD || misaligned({q, k, v, dout}))
+    return cudaErrorInvalidValue;
+  return b16::bwd(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, delta,
+                  static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv), BH, T,
+                  Tkv, scale, static_cast<cudaStream_t>(stream));
 }

@@ -95,6 +95,11 @@ def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
         for p in group["params"]:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+            elif p.grad.dtype != torch.float32:
+                # parameters stay f32 and every cast to a compute dtype is
+                # in the forward, so Adam sees f32 gradients, as in the JAX
+                # package
+                raise TypeError(f"a {tuple(p.shape)} parameter got a {p.grad.dtype} gradient")
         group["lr"] = state.schedule(group["base_lr"], state.step)
     grads = [p.grad.float() for p in model.parameters()]
     with torch.no_grad():

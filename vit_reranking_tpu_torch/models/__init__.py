@@ -22,9 +22,21 @@ def select(arch: str, opt, generator: Optional[torch.Generator] = None, img_size
     initialised from ``generator``.  `_normalize` in the arch string
     L2-normalises the embedding.  ``img_size`` (the input's side in pixels)
     sizes the ViT's position embedding, as Flax sizes it from the first
-    input."""
+    input.
+
+    ``opt.bf16`` picks the activation compute dtype (bf16 or f32) and
+    ``opt.narrow_sm`` the narrowed softmax, for CvT and Swin as the JAX
+    package passes them (models/__init__.py:37, :87, :104); the ViT/DeiT
+    has no bf16 form in the port yet, and raises for ``opt.bf16``."""
     a = arch.lower()
+    bf16 = bool(getattr(opt, "bf16", False))
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    narrow_sm = bool(getattr(opt, "narrow_sm", False))
     if a.startswith("vit") or a.startswith("deit"):
+        if bf16:
+            raise NotImplementedError(
+                f"--bf16 is not ported for {arch}: the port's ViT/DeiT computes in f32; "
+                "pass --no-bf16 to train it in f32")
         return ViTNetwork(embed_dim=opt.embed_dim, normalize="normalize" in a,
                           qk_block=opt.blk_ind, img_size=img_size, generator=generator)
     if "swin" in a:
@@ -32,10 +44,11 @@ def select(arch: str, opt, generator: Optional[torch.Generator] = None, img_size
         # multiple of the window (224 px and up), so its bias tables never
         # clamp and do not depend on the input size
         return SwinNetwork(embed_dim=opt.embed_dim, normalize="normalize" in a,
-                           generator=generator)
+                           generator=generator, narrow_sm=narrow_sm, dtype=dtype)
     if a.startswith("cvt") and "diml" not in a and "fp" not in a:
         return CvTNetwork(
-            embed_dim=opt.embed_dim, normalize="normalize" in a, generator=generator
+            embed_dim=opt.embed_dim, normalize="normalize" in a, generator=generator,
+            narrow_sm=narrow_sm, dtype=dtype,
         )
     raise NotImplementedError(
         f"architecture {arch} is not ported yet "

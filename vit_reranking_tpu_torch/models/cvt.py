@@ -16,6 +16,14 @@ under the JAX package's conditions (cvt.py:224-239), except that the JAX
 package's "only on a TPU" becomes "always": on the CPU the wrapper runs K3's
 plain version, which computes the same function.  ``ret_attn`` (rollout)
 keeps the materialising path, which it needs the probabilities of.
+
+``dtype`` is the activation compute dtype, as the JAX package's (bf16 for
+its default training recipe): each stage casts its input to it, the convs,
+BatchNorms and Linears of the trunk compute in it, the LayerNorms in f32
+(returning their input's dtype), and the trunk's output goes back to f32
+for the final LayerNorm and the head (JAX cvt.py:346, :358, :452-455,
+ConvProj :147-163).  ``narrow_sm`` lets the materialised scores follow a
+bf16 compute dtype (JAX cvt.py:253-265); K3 keeps its scores in f32.
 """
 
 from __future__ import annotations
@@ -30,7 +38,9 @@ import torch.nn as nn
 from ..ops import attention as kv_attention
 from ..ops.rollout import block_rollout_map
 from ..ops.similarity import l2_normalize
-from .common import BatchNorm2d, DropPath, LayerNormFp32, Mlp, init_weights, trunc_normal_
+from .common import (
+    BatchNorm2d, Conv2d, DropPath, LayerNormFp32, Linear, Mlp, init_weights, trunc_normal_,
+)
 
 
 @dataclass(frozen=True)
@@ -74,10 +84,12 @@ class ConvProj(nn.Module):
     Input (B, C, H, W) -> (B, H'*W', C) flattened tokens.
     """
 
-    def __init__(self, dim: int, kernel: int, stride: int, padding: int):
+    def __init__(self, dim: int, kernel: int, stride: int, padding: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv = nn.Conv2d(dim, dim, kernel, stride, padding, groups=dim, bias=False)
-        self.bn = BatchNorm2d(dim, eps=1e-5, momentum=0.1)
+        self.conv = Conv2d(dim, dim, kernel, stride, padding, groups=dim, bias=False,
+                           compute_dtype=dtype)
+        self.bn = BatchNorm2d(dim, eps=1e-5, momentum=0.1, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.bn(self.conv(x)).flatten(2).transpose(1, 2)
@@ -88,18 +100,21 @@ class CvTAttention(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool, kernel: int,
                  stride_q: int, stride_kv: int, padding_q: int, padding_kv: int,
-                 with_cls_token: bool, attn_drop: float = 0.0, proj_drop: float = 0.0):
+                 with_cls_token: bool, attn_drop: float = 0.0, proj_drop: float = 0.0,
+                 narrow_sm: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dim = dim
         self.num_heads = num_heads
         self.with_cls_token = with_cls_token
-        self.conv_proj_q = ConvProj(dim, kernel, stride_q, padding_q)
-        self.conv_proj_k = ConvProj(dim, kernel, stride_kv, padding_kv)
-        self.conv_proj_v = ConvProj(dim, kernel, stride_kv, padding_kv)
-        self.proj_q = nn.Linear(dim, dim, bias=qkv_bias)
-        self.proj_k = nn.Linear(dim, dim, bias=qkv_bias)
-        self.proj_v = nn.Linear(dim, dim, bias=qkv_bias)
-        self.proj = nn.Linear(dim, dim)
+        self.narrow_sm = narrow_sm
+        self.dtype = dtype
+        self.conv_proj_q = ConvProj(dim, kernel, stride_q, padding_q, dtype)
+        self.conv_proj_k = ConvProj(dim, kernel, stride_kv, padding_kv, dtype)
+        self.conv_proj_v = ConvProj(dim, kernel, stride_kv, padding_kv, dtype)
+        self.proj_q = Linear(dim, dim, bias=qkv_bias, compute_dtype=dtype)
+        self.proj_k = Linear(dim, dim, bias=qkv_bias, compute_dtype=dtype)
+        self.proj_v = Linear(dim, dim, bias=qkv_bias, compute_dtype=dtype)
+        self.proj = Linear(dim, dim, compute_dtype=dtype)
         self.attn_drop = nn.Dropout(attn_drop)
         self.proj_drop = nn.Dropout(proj_drop)
 
@@ -123,8 +138,7 @@ class CvTAttention(nn.Module):
         q = heads(self.proj_q(q))
         k = heads(self.proj_k(k))
         v = heads(self.proj_v(v))
-        # scale uses the FULL dim, not head dim (reference cvt.py:105);
-        # scores and softmax in f32
+        # scale uses the FULL dim, not head dim (reference cvt.py:105)
         scale = self.dim**-0.5
         if (USE_KV_RESIDENT_ATTENTION and not ret_attn and cls_tok is None
                 and self.attn_drop.p == 0.0):
@@ -132,7 +146,13 @@ class CvTAttention(nn.Module):
             if out is not None:
                 out = out.transpose(1, 2).reshape(B, -1, C)
                 return self.proj_drop(self.proj(out)), None
-        score = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+        if self.narrow_sm and not ret_attn and self.dtype != torch.float32:
+            # scores and softmax in the compute dtype (JAX cvt.py:253-265)
+            score = torch.matmul(q, k.transpose(-1, -2)) * scale
+        else:
+            # f32 scores and softmax: the products of the compute-dtype q and
+            # k, summed in f32
+            score = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
         attn = self.attn_drop(torch.softmax(score, dim=-1))
         out = torch.matmul(attn.to(v.dtype), v)
         out = out.transpose(1, 2).reshape(B, -1, C)
@@ -146,14 +166,16 @@ class CvTBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, qkv_bias: bool,
                  drop: float, attn_drop: float, drop_path: float, kernel: int,
                  stride_q: int, stride_kv: int, padding_q: int, padding_kv: int,
-                 with_cls_token: bool):
+                 with_cls_token: bool, narrow_sm: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.norm1 = LayerNormFp32(dim)
         self.attn = CvTAttention(dim, num_heads, qkv_bias, kernel, stride_q, stride_kv,
-                                 padding_q, padding_kv, with_cls_token, attn_drop, drop)
+                                 padding_q, padding_kv, with_cls_token, attn_drop, drop,
+                                 narrow_sm, dtype)
         self.drop_path1 = DropPath(drop_path)
         self.norm2 = LayerNormFp32(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dropout=drop)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dropout=drop, compute_dtype=dtype)
         self.drop_path2 = DropPath(drop_path)
 
     def forward(self, x: torch.Tensor, h: int, w: int, ret_attn: bool = False):
@@ -166,15 +188,18 @@ class CvTBlock(nn.Module):
 class CvTStage(nn.Module):
     """Conv embed + blocks (reference VisionTransformer, cvt.py:382-500)."""
 
-    def __init__(self, spec: CvTSpec, index: int, in_chans: int, rollout_grid: int = 7):
+    def __init__(self, spec: CvTSpec, index: int, in_chans: int, rollout_grid: int = 7,
+                 narrow_sm: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         i = index
         s = spec
         self.rollout_grid = rollout_grid
         self.with_cls = s.cls_token[i]
+        self.dtype = dtype
         dim = s.dim_embed[i]
-        self.patch_embed_proj = nn.Conv2d(
-            in_chans, dim, s.patch_size[i], s.patch_stride[i], s.patch_padding[i]
+        self.patch_embed_proj = Conv2d(
+            in_chans, dim, s.patch_size[i], s.patch_stride[i], s.patch_padding[i],
+            compute_dtype=dtype,
         )
         self.patch_embed_norm = LayerNormFp32(dim)
         if self.with_cls:
@@ -190,10 +215,11 @@ class CvTStage(nn.Module):
                 kernel=s.kernel_qkv[i], stride_q=s.stride_q[i],
                 stride_kv=s.stride_kv[i], padding_q=s.padding_q[i],
                 padding_kv=s.padding_kv[i], with_cls_token=self.with_cls,
+                narrow_sm=narrow_sm, dtype=dtype,
             ))
 
     def forward(self, x: torch.Tensor, ret_attn: bool = False):
-        x = self.patch_embed_proj(x)
+        x = self.patch_embed_proj(x.to(self.dtype))
         B, C, H, W = x.shape
         tokens = self.patch_embed_norm(x.flatten(2).transpose(1, 2))
         if self.with_cls:
@@ -217,12 +243,14 @@ class CvTStage(nn.Module):
 class ConvolutionalVisionTransformer(nn.Module):
     """3-stage CvT trunk (reference cvt.py:503-648)."""
 
-    def __init__(self, spec: CvTSpec = CVT13_SPEC, rollout_grid: int = 7):
+    def __init__(self, spec: CvTSpec = CVT13_SPEC, rollout_grid: int = 7,
+                 narrow_sm: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_stages = spec.num_stages
         in_chans = 3
         for i in range(spec.num_stages):
-            self.add_module(f"stage{i}", CvTStage(spec, i, in_chans, rollout_grid))
+            self.add_module(f"stage{i}", CvTStage(spec, i, in_chans, rollout_grid,
+                                                  narrow_sm, dtype))
             in_chans = spec.dim_embed[i]
 
     def forward(self, x: torch.Tensor, ret_attn: bool = False):
@@ -240,14 +268,17 @@ class CvTNetwork(nn.Module):
     ``forward(x (B, 3, H, W), ret_attn)`` returns
     ``(embed, (enc_out, no_avg_feat), aux)``: no_avg_feat is the LayerNorm'd
     token map (B, H*W, C); aux carries ``head_tokens`` (B, H*W, embed_dim)
-    and, with ``ret_attn``, ``rollout_maps`` (L, B, G, G).
+    and, with ``ret_attn``, ``rollout_maps`` (L, B, G, G).  ``dtype`` is the
+    trunk's compute dtype; the final LayerNorm, the head and every output are
+    f32 whatever it is.
     """
 
     def __init__(self, embed_dim: int = 128, normalize: bool = True, rollout_grid: int = 7,
-                 spec: CvTSpec = CVT13_SPEC, generator: Optional[torch.Generator] = None):
+                 spec: CvTSpec = CVT13_SPEC, generator: Optional[torch.Generator] = None,
+                 narrow_sm: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.normalize = normalize
-        self.trunk = ConvolutionalVisionTransformer(spec, rollout_grid)
+        self.trunk = ConvolutionalVisionTransformer(spec, rollout_grid, narrow_sm, dtype)
         dim = spec.dim_embed[-1]
         self.norm = LayerNormFp32(dim)
         self.head = nn.Linear(dim, embed_dim)

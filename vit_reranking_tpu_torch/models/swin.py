@@ -18,6 +18,14 @@ as Flax sizes it on first use.  Window attention goes through
 reading the qkv projection in place) when ``USE_SWIN_WINDOW_KERNEL`` is on;
 otherwise, and where that entry returns None, it materialises the
 probabilities as the JAX package does.
+
+``dtype`` is the activation compute dtype (bf16 in the JAX package's
+default training recipe), with its cast points (JAX swin.py:218-248,
+:264-267, :287-295, :319-320): the LayerNorms compute in f32 and return f32,
+and the residual stream, attention, MLP and patch merging run in the compute
+dtype; the final LayerNorm, the head and every output are f32.
+``narrow_sm`` lets the materialised scores follow a bf16 compute dtype, with
+the bias table and mask cast to them (JAX swin.py:176-191).
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ import torch.nn as nn
 
 from ..ops.similarity import l2_normalize
 from ..ops.swin_attention import swin_attention_qkv
-from .common import DropPath, Mlp, exact_gelu, init_weights, trunc_normal_
+from .common import Conv2d, DropPath, Linear, Mlp, exact_gelu, init_weights, trunc_normal_
 
 # The window-attention kernels, off by default as in the JAX package
 # (models/swin.py:73); SWIN_WINDOW_ATTENTION=1 turns them on.  Read at call
@@ -87,25 +95,30 @@ def window_reverse(wins: torch.Tensor, window: int, H: int, W: int) -> torch.Ten
 
 
 class LayerNorm32(nn.LayerNorm):
-    """LayerNorm (eps 1e-5) computed in f32 whatever the input's dtype, with
-    Flax's ``scale``/``bias`` as ``weight``/``bias`` of this module itself."""
+    """LayerNorm (eps 1e-5) computed in f32 and returned in f32 whatever the
+    input's dtype (Flax ``LayerNorm(dtype=float32)``), with Flax's
+    ``scale``/``bias`` as ``weight``/``bias`` of this module itself."""
 
     def __init__(self, dim: int):
         super().__init__(dim, eps=1e-5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.float()).to(x.dtype)
+        return super().forward(x.float())
 
 
 class WindowAttention(nn.Module):
     """Multi-head attention inside each window, with a learned relative
     position bias (reference architectures/swin.py via timm)."""
 
-    def __init__(self, dim: int, num_heads: int, window: int = 7):
+    def __init__(self, dim: int, num_heads: int, window: int = 7, narrow_sm: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dim, self.num_heads, self.window = dim, num_heads, window
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        # scores in the compute dtype: Swin has no consumer of the
+        # probabilities, so nothing gates it (JAX swin.py:118-125)
+        self.narrow = narrow_sm and dtype != torch.float32
+        self.qkv = Linear(dim, 3 * dim, compute_dtype=dtype)
+        self.proj = Linear(dim, dim, compute_dtype=dtype)
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * window - 1) ** 2, num_heads))
         self.register_buffer(
@@ -131,11 +144,14 @@ class WindowAttention(nn.Module):
 
         qkv = qkv.reshape(Bw, T, 3, H, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]
-        attn = torch.matmul(q.float(), k.float().transpose(-1, -2)) * hd**-0.5
-        attn = attn + bias[None].float()
+        if self.narrow:
+            attn = torch.matmul(q, k.transpose(-1, -2)) * hd**-0.5
+        else:
+            attn = torch.matmul(q.float(), k.float().transpose(-1, -2)) * hd**-0.5
+        attn = attn + bias[None].to(attn.dtype)
         if mask is not None:
             nW = mask.shape[0]
-            attn = attn.reshape(Bw // nW, nW, H, T, T) + mask[None, :, None].float()
+            attn = attn.reshape(Bw // nW, nW, H, T, T) + mask[None, :, None].to(attn.dtype)
             attn = attn.reshape(Bw, H, T, T)
         attn = torch.softmax(attn, dim=-1)
         out = torch.matmul(attn.to(v.dtype), v)
@@ -147,16 +163,17 @@ class SwinBlock(nn.Module):
     resolution ``res`` (H = W)."""
 
     def __init__(self, dim: int, num_heads: int, res: int, window: int = 7, shift: int = 0,
-                 mlp_ratio: float = 4.0, drop_path: float = 0.0):
+                 mlp_ratio: float = 4.0, drop_path: float = 0.0, narrow_sm: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.window, self.shift = window, shift
+        self.window, self.shift, self.dtype = window, shift, dtype
         self.norm1 = LayerNorm32(dim)
         # official Swin rule (JAX models/swin.py:215-216): when the resolution
         # does not exceed the window, attention is global over a clamped window
-        self.attn = WindowAttention(dim, num_heads, min(window, res))
+        self.attn = WindowAttention(dim, num_heads, min(window, res), narrow_sm, dtype)
         self.dp1 = DropPath(drop_path)
         self.norm2 = LayerNorm32(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, act=exact_gelu)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, act=exact_gelu, compute_dtype=dtype)
         self.dp2 = DropPath(drop_path)
 
     def forward(self, x: torch.Tensor, H: int, W: int) -> torch.Tensor:
@@ -168,7 +185,7 @@ class SwinBlock(nn.Module):
                 f"SwinBlock built for a {self.attn.window}-token window, given {H}x{W} tokens"
             )
         res = x
-        y = self.norm1(x).reshape(B, H, W, C)
+        y = self.norm1(x).to(self.dtype).reshape(B, H, W, C)
         mask = None
         if shift > 0:
             y = torch.roll(y, shifts=(-shift, -shift), dims=(1, 2))
@@ -179,16 +196,16 @@ class SwinBlock(nn.Module):
         if shift > 0:
             y = torch.roll(y, shifts=(shift, shift), dims=(1, 2))
         x = res + self.dp1(y.reshape(B, L, C))
-        return x + self.dp2(self.mlp(self.norm2(x)))
+        return x + self.dp2(self.mlp(self.norm2(x).to(self.dtype)))
 
 
 class PatchMerging(nn.Module):
     """2x2 token merge: concatenate, LayerNorm, linear 4C -> 2C, no bias."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.norm = LayerNorm32(4 * dim)
-        self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
+        self.reduction = Linear(4 * dim, 2 * dim, bias=False, compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor, H: int, W: int) -> torch.Tensor:
         B, L, C = x.shape
@@ -204,15 +221,18 @@ class SwinNetwork(nn.Module):
 
     ``forward(x (B, 3, img_size, img_size))`` returns
     ``(embed, (enc_out, token_map), {"head_tokens": head(token_map)})``:
-    token_map is the LayerNorm'd final token map (B, L, C)."""
+    token_map is the LayerNorm'd final token map (B, L, C), in f32 whatever
+    the compute ``dtype`` is."""
 
     def __init__(self, embed_dim: int = 128, normalize: bool = True, dim: int = 96,
                  depths: Sequence[int] = (2, 2, 6, 2), num_heads: Sequence[int] = (3, 6, 12, 24),
                  window: int = 7, patch: int = 4, drop_path_rate: float = 0.2,
-                 img_size: int = 224, generator: Optional[torch.Generator] = None):
+                 img_size: int = 224, generator: Optional[torch.Generator] = None,
+                 narrow_sm: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.normalize, self.depths, self.patch = normalize, tuple(depths), patch
-        self.patch_embed_proj = nn.Conv2d(3, dim, patch, patch)
+        self.dtype = dtype
+        self.patch_embed_proj = Conv2d(3, dim, patch, patch, compute_dtype=dtype)
         self.patch_embed_norm = LayerNorm32(dim)
         dpr = np.linspace(0, drop_path_rate, sum(depths))
         res, b = img_size // patch, 0
@@ -221,10 +241,11 @@ class SwinNetwork(nn.Module):
                 self.add_module(f"layer{li}_block{bi}", SwinBlock(
                     dim, num_heads[li], res, window=window,
                     shift=0 if bi % 2 == 0 else window // 2, drop_path=float(dpr[b]),
+                    narrow_sm=narrow_sm, dtype=dtype,
                 ))
                 b += 1
             if li < len(depths) - 1:
-                self.add_module(f"layer{li}_downsample", PatchMerging(dim))
+                self.add_module(f"layer{li}_downsample", PatchMerging(dim, dtype))
                 res, dim = res // 2, dim * 2
         self.norm = LayerNorm32(dim)
         self.head = nn.Linear(dim, embed_dim)
@@ -235,16 +256,16 @@ class SwinNetwork(nn.Module):
                     trunc_normal_(m.relative_position_bias_table, 0.02, generator)
 
     def forward(self, x: torch.Tensor, ret_attn: bool = False):
-        x = self.patch_embed_proj(x.float())
+        x = self.patch_embed_proj(x.to(self.dtype))
         B, C, H, W = x.shape
-        x = self.patch_embed_norm(x.flatten(2).transpose(1, 2))
+        x = self.patch_embed_norm(x.flatten(2).transpose(1, 2)).to(self.dtype)
         for li, depth in enumerate(self.depths):
             for bi in range(depth):
                 x = getattr(self, f"layer{li}_block{bi}")(x, H, W)
             if li < len(self.depths) - 1:
                 x = getattr(self, f"layer{li}_downsample")(x, H, W)
                 H, W = H // 2, W // 2
-        no_avg_feat = self.norm(x).float()  # (B, 49, 768): head and rerank features in f32
+        no_avg_feat = self.norm(x)  # (B, 49, 768): head and rerank features in f32
         enc_out = no_avg_feat.mean(dim=1)
         out = self.head(enc_out)
         if self.normalize:

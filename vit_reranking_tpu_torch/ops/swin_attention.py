@@ -18,8 +18,15 @@ the relative-position bias.
     the qkv projection's (Bw, T, 3C) output as it is and returns the
     (Bw, T, C) layout of ``proj``'s input.
 
+Every entry takes float32 or bfloat16 q, k, v (the bias, mask and additive
+term stay f32, and so does their gradient).  In bf16 the function is the TPU
+kernels' arithmetic with bf16 operands: products summed in f32, scores,
+softmax, dp and ds in f32, p (normalised) and ds rounded to bf16 before the
+products they feed, each product's f32 sum scaled and rounded to bf16 once,
+and the bias or additive-term gradient summed from the f32 ds.
+
 On CUDA tensors every entry launches the same window core in
-``csrc/swin_attention.cu``, which solves each (T, T) window on its own: the
+``csrc/swin_attention.cu`` (its f32 or its bf16 form), which solves each (T, T) window on its own: the
 packed contract's products across windows are exactly zero after softmax
 (-1e9 off the diagonal blocks), so the core reads only add's diagonal
 blocks and writes zeros to the rest of its gradient.  The core reads and
@@ -67,12 +74,68 @@ _BWD_ARGS = [*[ctypes.c_void_p] * 11, ctypes.c_int, ctypes.c_void_p, *[ctypes.c_
              ctypes.c_float, ctypes.c_void_p]
 
 
+def _f32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of (bf16) operands with every product and sum in f32."""
+    return torch.matmul(a.float(), b.float())
+
+
+class _PlainBf16(torch.autograd.Function):
+    """The plain version of either contract in bf16, with the TPU kernels'
+    backward (swin_attention_pallas.py:88-115, :234-265): dp and ds in f32,
+    ``dq = (ds k) scale``, ``dk = (ds^T q) scale`` and ``dv = p^T dO`` from
+    ds and p rounded to bf16, each sum in f32 and rounded to bf16 once, and
+    the additive term's gradient the f32 ds summed over the B images of each
+    head (and, for the batched contract's bias, over the windows too).
+    ``add`` is (H, nA, T', T') f32 with nA 1 or the operands' second dim;
+    autograd of the forward would round dp to bf16, which the kernels do
+    not."""
+
+    @staticmethod
+    def _probs(q, k, add, scale, B):
+        H = add.shape[0]
+        s = _f32_product(q, k.transpose(-1, -2)) * scale
+        s = (s.view(H, B, *s.shape[1:]) + add[:, None]).view(s.shape)
+        return torch.softmax(s, dim=-1)
+
+    @staticmethod
+    def forward(ctx, q, k, v, add, scale, B):
+        ctx.scale, ctx.B = scale, B
+        ctx.save_for_backward(q, k, v, add)
+        p = _PlainBf16._probs(q, k, add, scale, B)
+        return _f32_product(p.to(v.dtype), v).to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, add = ctx.saved_tensors
+        scale, B = ctx.scale, ctx.B
+        p = _PlainBf16._probs(q, k, add, scale, B)
+        dp = _f32_product(do, v.transpose(-1, -2))
+        ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
+        ds16 = ds.to(q.dtype)
+        dq = (_f32_product(ds16, k) * scale).to(q.dtype)
+        dk = (_f32_product(ds16.transpose(-1, -2), q) * scale).to(k.dtype)
+        dv = _f32_product(p.to(do.dtype).transpose(-1, -2), do).to(v.dtype)
+        H = add.shape[0]
+        dadd = ds.view(H, B, *ds.shape[1:]).sum(dim=1)
+        if add.shape[1] == 1:
+            dadd = dadd.sum(dim=1, keepdim=True)
+        return dq, dk, dv, dadd.to(add.dtype), None, None
+
+
 def swin_window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                 bias: torch.Tensor, mask: Optional[torch.Tensor],
                                 scale: float) -> torch.Tensor:
     """The materialising batched version: f32 scores plus bias and mask,
-    softmax, then ``p @ v`` (q/k/v (G, nW, T, D), G = H * B head slowest)."""
+    softmax, then ``p @ v`` (q/k/v (G, nW, T, D), G = H * B head slowest);
+    in bf16 with the TPU kernel's explicit backward (:class:`_PlainBf16`)."""
     B = q.shape[0] // bias.shape[0]
+    if q.dtype == torch.bfloat16:
+        # bias[h] + mask[w] as one (H, 1 or nW, T, T) f32 additive term;
+        # autograd sums its gradient over the windows into the bias's
+        add = bias.float()[:, None]
+        if mask is not None:
+            add = add + mask.float()[None]
+        return _PlainBf16.apply(q, k, v, add, float(scale), B)
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     s = s + bias.float().repeat_interleave(B, dim=0)[:, None]
     if mask is not None:
@@ -84,7 +147,10 @@ def swin_window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
 def packed_attention_plain(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
                            add: torch.Tensor, scale: float, B: int) -> torch.Tensor:
     """The full (P T, P T) packed function, as the JAX kernel computes it:
-    qp/kp/vp (G, nblk, P T, D), add (H, nblk, P T, P T), G = H * B."""
+    qp/kp/vp (G, nblk, P T, D), add (H, nblk, P T, P T), G = H * B; in bf16
+    with the TPU kernel's explicit backward (:class:`_PlainBf16`)."""
+    if qp.dtype == torch.bfloat16:
+        return _PlainBf16.apply(qp, kp, vp, add.float(), float(scale), B)
     s = torch.matmul(qp.float(), kp.float().transpose(-1, -2)) * scale
     s = s + add.float().repeat_interleave(B, dim=0)
     p = torch.softmax(s, dim=-1)
@@ -123,12 +189,23 @@ def _packed_add_term(bias: torch.Tensor, mask: Optional[torch.Tensor], P: int,
     return big
 
 
-def _check_cuda(**tensors: torch.Tensor) -> None:
-    for name, t in tensors.items():
-        if t.device.type != "cuda" or t.dtype != torch.float32 or not t.is_contiguous():
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_cuda(operands, **f32) -> None:
+    """q, k, v (``operands``) contiguous CUDA tensors of one dtype, float32
+    or bfloat16; the bias, mask or additive term (``f32``) contiguous
+    float32 CUDA tensors."""
+    dtypes = {t.dtype for t in operands.values()}
+    for name, t in {**operands, **f32}.items():
+        want = _DTYPES if name in operands else (torch.float32,)
+        if t.device.type != "cuda" or t.dtype not in want or not t.is_contiguous() \
+                or (name in operands and len(dtypes) != 1):
             raise ValueError(
-                f"swin attention: {name} must be a contiguous float32 CUDA tensor, got "
-                f"{tuple(t.shape)} {t.dtype} on {t.device}"
+                f"swin attention: {name} must be a contiguous CUDA tensor of "
+                f"{' or '.join(str(d) for d in want)}"
+                + (" (q, k and v of one dtype)" if name in operands else "")
+                + f", got {tuple(t.shape)} {t.dtype} on {t.device}"
             )
 
 
@@ -170,9 +247,10 @@ def _tokens_view(o: torch.Tensor, nW: int, H: int) -> torch.Tensor:
 
 def _strides(*groups):
     """The (image, window, head, token) strides of each group of (B, nW, H,
-    T, D) views (one set a group, as the C entries take them); raises unless
-    a group's views share their strides, the head dim is contiguous and
-    every row starts on a 16-byte boundary (cp.async)."""
+    T, D) views (one set a group, as the C entries take them, in elements);
+    raises unless a group's views share their strides, the head dim is
+    contiguous and every row starts on a 16-byte boundary (cp.async)."""
+    per16 = 16 // groups[0][0].element_size()
     out = []
     for group in groups:
         t = group[0]
@@ -182,13 +260,25 @@ def _strides(*groups):
         if any(u.data_ptr() % 16 for u in group):
             raise ValueError("swin attention: operands must start on 16-byte boundaries")
         st = t.stride()
-        if st[4] != 1 or any(x % 4 for x in st[:4]):
+        if st[4] != 1 or any(x % per16 for x in st[:4]):
             raise ValueError(
                 f"swin attention: operand with strides {st} at offset {t.storage_offset()}; "
                 "the kernel reads and writes 16-byte aligned rows with a contiguous head dim"
             )
         out.extend(st[:4])
     return (ctypes.c_longlong * len(out))(*out)
+
+
+def _suffix(q: torch.Tensor) -> str:
+    """The C entries' name suffix for q's dtype."""
+    return "_bf16" if q.dtype == torch.bfloat16 else ""
+
+
+def _count(fn, direction: str, dtype: torch.dtype) -> None:
+    """One more launch on ``fn``'s counter for ``direction`` ("fwd"/"bwd")
+    in ``dtype`` (``fwd_launches`` or ``fwd_bf16_launches``, ...)."""
+    name = f"{direction}{'_bf16' if dtype == torch.bfloat16 else ''}_launches"
+    setattr(fn, name, getattr(fn, name) + 1)
 
 
 class _Launch:
@@ -208,7 +298,7 @@ class _Launch:
 
     def forward(self, q, k, v, add, mask, o):
         """o = attention(q, k, v), all (B, nW, H, T, D) views."""
-        fn = native.launcher("swin_attention", "swin_attention_fwd", _FWD_ARGS)
+        fn = native.launcher("swin_attention", "swin_attention_fwd" + _suffix(q), _FWD_ARGS)
         strides = _strides((q, k, v), (o,))
         stream = torch.cuda.current_stream(q.device).cuda_stream
         native.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), add.data_ptr(),
@@ -222,7 +312,7 @@ class _Launch:
         B, H, nW, T = self.dims[:4]
         part = torch.empty((self.runs, H, nW, T, T), dtype=torch.float32, device=q.device)
         grad_add = torch.empty(grad_add_shape, dtype=torch.float32, device=q.device)
-        fn = native.launcher("swin_attention", "swin_attention_bwd", _BWD_ARGS)
+        fn = native.launcher("swin_attention", "swin_attention_bwd" + _suffix(q), _BWD_ARGS)
         strides = _strides((q, k, v), (do,), (dq, dk, dv))
         stream = torch.cuda.current_stream(q.device).cuda_stream
         native.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), add.data_ptr(),
@@ -261,7 +351,7 @@ class _WindowAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias, mask, scale):
-        _check_cuda(q=q, k=k, v=v, bias=bias, **({} if mask is None else {"mask": mask}))
+        _check_cuda(dict(q=q, k=k, v=v), bias=bias, **({} if mask is None else {"mask": mask}))
         G, nW, T, _ = q.shape
         H = bias.shape[0]
         if k.shape != q.shape or v.shape != q.shape or G % H or bias.shape != (H, T, T) \
@@ -273,7 +363,7 @@ class _WindowAttention(torch.autograd.Function):
             )
         launch = _contract_launch(q, H, 1, T * T, 0, T, scale)
         o = _contract_forward(launch, q, k, v, bias, mask, H)
-        swin_window_attention.fwd_launches += 1
+        _count(swin_window_attention, "fwd", q.dtype)
         ctx.launch = launch
         ctx.save_for_backward(q, k, v, bias, mask)
         return o
@@ -283,7 +373,7 @@ class _WindowAttention(torch.autograd.Function):
         q, k, v, bias, mask = ctx.saved_tensors
         dq, dk, dv, dbias = _contract_backward(ctx.launch, q, k, v, bias, mask, _ready(do),
                                                bias.shape[0], packed=False)
-        swin_window_attention.bwd_launches += 1
+        _count(swin_window_attention, "bwd", q.dtype)
         return dq, dk, dv, dbias, None, None
 
 
@@ -292,7 +382,7 @@ class _PackedAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, qp, kp, vp, add, scale, B, T):
-        _check_cuda(qp=qp, kp=kp, vp=vp, add=add)
+        _check_cuda(dict(qp=qp, kp=kp, vp=vp), add=add)
         G, nblk, PT, D = qp.shape
         H = add.shape[0]
         if kp.shape != qp.shape or vp.shape != qp.shape or PT % T \
@@ -306,7 +396,7 @@ class _PackedAttention(torch.autograd.Function):
         launch = _contract_launch(qp.view(shape), H, P, nblk * PT * PT, PT * PT, PT, scale)
         o = _contract_forward(launch, qp.view(shape), kp.view(shape), vp.view(shape), add,
                               None, H)
-        swin_window_attention_packed.fwd_launches += 1
+        _count(swin_window_attention_packed, "fwd", qp.dtype)
         ctx.launch, ctx.shape = launch, shape
         ctx.save_for_backward(qp, kp, vp, add)
         return o.view(qp.shape)
@@ -318,7 +408,7 @@ class _PackedAttention(torch.autograd.Function):
         dq, dk, dv, dadd = _contract_backward(
             ctx.launch, qp.view(shape), kp.view(shape), vp.view(shape), add, None,
             _ready(do).view(shape), add.shape[0], packed=True)
-        swin_window_attention_packed.bwd_launches += 1
+        _count(swin_window_attention_packed, "bwd", qp.dtype)
         return dq.view(qp.shape), dk.view(qp.shape), dv.view(qp.shape), dadd, None, None, None
 
 
@@ -339,8 +429,8 @@ class _QkvAttention(torch.autograd.Function):
             launch = _Launch(Bw // nW, H, nW, T, C // H, 1, T * T, 0, T, scale)
         o = torch.empty((Bw, T, C), dtype=qkv.dtype, device=qkv.device)
         launch.forward(*_qkv_views(qkv, nW, H), add, mask, _tokens_view(o, nW, H))
-        counted = swin_window_attention_packed if packed else swin_window_attention
-        counted.fwd_launches += 1
+        _count(swin_window_attention_packed if packed else swin_window_attention, "fwd",
+               qkv.dtype)
         ctx.launch, ctx.H, ctx.nW, ctx.packed = launch, H, nW, packed
         ctx.save_for_backward(qkv, add, mask)
         return o
@@ -353,8 +443,8 @@ class _QkvAttention(torch.autograd.Function):
         dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
         grad_add = ctx.launch.backward(*_qkv_views(qkv, nW, H), add, mask, do_view,
                                        *_qkv_views(dqkv, nW, H), add.shape, ctx.packed)
-        counted = swin_window_attention_packed if ctx.packed else swin_window_attention
-        counted.bwd_launches += 1
+        _count(swin_window_attention_packed if ctx.packed else swin_window_attention, "bwd",
+               qkv.dtype)
         return dqkv, grad_add, None, None, None, None, None, None
 
 
@@ -373,8 +463,10 @@ def swin_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bias: (H, T, T); mask: (nW, T, T) or None.  Returns (G, nW, T, D).
     Differentiable in q, k, v and bias.  On CPU tensors this is
     :func:`swin_window_attention_plain`; on CUDA tensors it launches the
-    kernel (float32, T <= 64, D a multiple of 8 up to 64; anything else
-    raises).  ``.fwd_launches`` / ``.bwd_launches`` count the launches.
+    kernel (q, k, v float32 or bfloat16, T <= 64, D a multiple of 8 up to
+    64; anything else raises).  ``.fwd_launches`` / ``.bwd_launches`` count
+    the float32 launches, ``.fwd_bf16_launches`` / ``.bwd_bf16_launches``
+    the bfloat16 ones.
     """
     if q.device.type == "cpu":
         return swin_window_attention_plain(q, k, v, bias, mask, scale)
@@ -385,8 +477,8 @@ def swin_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     )
 
 
-swin_window_attention.fwd_launches = 0
-swin_window_attention.bwd_launches = 0
+swin_window_attention.fwd_launches = swin_window_attention.bwd_launches = 0
+swin_window_attention.fwd_bf16_launches = swin_window_attention.bwd_bf16_launches = 0
 
 
 def _packed_attention(qp: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
@@ -412,7 +504,7 @@ def swin_window_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
                                  scale: float) -> torch.Tensor:
     """Same contract as :func:`swin_window_attention`, via the packed
     block-diagonal contract (kernel K4a).  Differentiable in q, k, v and
-    bias; ``.fwd_launches`` / ``.bwd_launches`` count the launches."""
+    bias; the launches are counted as :func:`swin_window_attention`'s."""
     G, nW, T, D = q.shape
     B = G // bias.shape[0]
     P = _pick_pack_packed(nW, T)
@@ -424,8 +516,9 @@ def swin_window_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     return out.reshape(G, nW, T, D)
 
 
-swin_window_attention_packed.fwd_launches = 0
-swin_window_attention_packed.bwd_launches = 0
+swin_window_attention_packed.fwd_launches = swin_window_attention_packed.bwd_launches = 0
+swin_window_attention_packed.fwd_bf16_launches = 0
+swin_window_attention_packed.bwd_bf16_launches = 0
 
 
 def _routed(Bw: int, nW: int, T: int, Tk: int, D: int) -> bool:
@@ -506,7 +599,8 @@ def swin_attention_qkv(qkv: torch.Tensor, bias: torch.Tensor, mask: Optional[tor
     On CUDA tensors the kernel (K4a or K4b, as ``SWIN_KERNEL_PACKED``
     picks; the same launch counters) reads q, k and v in place and writes
     the output, and in the backward one (Bw, T, 3 C) gradient of qkv, with
-    no copy of either (float32, every row 16-byte aligned, else it raises).
+    no copy of either (float32 or bfloat16, every row 16-byte aligned, else
+    it raises).
     On CPU tensors it is :func:`swin_attention_qkv_plain`."""
     Bw, T, C3 = qkv.shape
     H = num_heads
@@ -520,8 +614,9 @@ def swin_attention_qkv(qkv: torch.Tensor, bias: torch.Tensor, mask: Optional[tor
     if qkv.device.type == "cpu":
         return swin_attention_qkv_plain(qkv, bias, mask, scale, H, n_windows=nW)
     _refuse(qkv.device, "swin_attention_qkv")
-    if qkv.dtype != torch.float32:
-        raise ValueError(f"swin_attention_qkv: qkv must be float32, got {qkv.dtype}")
+    if qkv.dtype not in _DTYPES:
+        raise ValueError(
+            f"swin_attention_qkv: qkv must be float32 or bfloat16, got {qkv.dtype}")
     if SWIN_KERNEL_PACKED:
         P = _pick_pack_packed(nW, T)
         add = _packed_add_term(bias, mask, P, nW // P).contiguous()
