@@ -16,7 +16,8 @@ seeded generator:
     the window-attention kernels on: K4a (packed, the default variant)
     forward and backward, reached through the qkv entry that reads the
     model's projection in place; then one step and an evaluation batch with
-    the batched variant, K4b;
+    the batched variant, K4b (on the card the entry runs the same kernels
+    from bias and mask under either variant, counted as the variant's);
   * the reference's default training precision: K3 and K4 in bf16 against
     their plain versions at CvT-13 stage 0 and Swin-T stage 0, then
     train_baseline on its card defaults (bf16 activations, narrowed
@@ -1017,7 +1018,8 @@ def phase_k4(torch):
     dbias/dadd checked for the same bits on a second run, and the yardstick
     of scaled_dot_product_attention over the same windows with the bias and
     mask expanded to a float attn_mask; then the model's qkv entry at the
-    same shapes (:func:`k4_qkv_entry`)."""
+    same shapes (:func:`k4_qkv_entry`).  Returns K4a's rows (the qkv entry's
+    numbers and the packed contract's, :func:`entry_rows`) and K4b's."""
     import torch.nn.functional as F
     from torch.nn.attention import sdpa_kernel
 
@@ -1122,24 +1124,26 @@ def phase_k4(torch):
             + ", ".join(f"{n} fwd+bwd {t:.4f} ms" for n, t in fwd_bwd.items()))
         del q, k, v, do, add
         torch.cuda.empty_cache()
-        k4_qkv_entry(torch, stage, nW, H, res, B, T, D, bounds, gen)
-    return entries["K4a packed"], entries["K4b batched"]
+        entry = k4_qkv_entry(torch, stage, nW, H, res, B, T, D, bounds, gen)
+        if stage == "stage 0":
+            entries["qkv entry"] = entry
+    return entry_rows(entries["qkv entry"], entries["K4a packed"]), entries["K4b batched"]
 
 
 def k4_qkv_entry(torch, stage, nW, H, res, B, T, D, bounds, gen):
     """The model's entry, swin_attention_qkv, on a (B nW, T, 3 H D)
-    projection as models/swin.py gives it, in both variants: forward and
-    backward against its plain version at K4's tolerances, dbias the same
-    bits on a rerun, times beside the bound (the same bytes as the
-    contracts') and SDPA on the same strided q, k, v; then two forwards and
-    backwards under the profiler, whose kernel list must hold no copy, fill
-    or add of q, k, v, o or their gradients (the batched variant runs the
-    port's three kernels and nothing else; the packed one adds the
-    additive term's own small kernels)."""
+    projection as models/swin.py gives it and calls it (``SWIN_KERNEL_PACKED``
+    on; the batched setting launches the same kernels and only counts them
+    apart): forward and backward against its plain version at K4's
+    tolerances, dbias the same bits on a rerun, times beside the bound (the
+    same bytes as the batched contract's: bias and mask) and SDPA on the
+    same strided q, k, v; then four forwards and backwards under the
+    profiler, whose kernel list must be the port's three kernels and nothing
+    else (no additive term is built, and no copy, fill or add of q, k, v, o
+    or their gradients).  Returns the forward's and backward's numbers for
+    the kernels JSON."""
     import torch.nn.functional as F
-    from torch.autograd import DeviceType
     from torch.nn.attention import sdpa_kernel
-    from torch.profiler import ProfilerActivity, profile
 
     from vit_reranking_tpu_torch.models.swin import _shift_attn_mask
     from vit_reranking_tpu_torch.ops import swin_attention as swa
@@ -1153,72 +1157,126 @@ def k4_qkv_entry(torch, stage, nW, H, res, B, T, D, bounds, gen):
     q4, k4, v4 = qkv.view(Bw, T, 3, H, D).permute(2, 0, 3, 1, 4)
     full_mask = bias[None] + mask.repeat(B, 1, 1)[:, None]
     backend = sdpa_backend(q4[:8], k4[:8], v4[:8], attn_mask=full_mask[:8], scale=scale)
+    sdpa_leaves = [t.detach().requires_grad_() for t in (q4, k4, v4)]
     with sdpa_kernel([backend]):
+        o4 = F.scaled_dot_product_attention(*sdpa_leaves, attn_mask=full_mask, scale=scale)
         sdpa_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             q4, k4, v4, attn_mask=full_mask, scale=scale), reps=5)
-    del q4, k4, v4, full_mask
-    for packed in (True, False):
-        name = "K4a packed" if packed else "K4b batched"
-        fwd_bound, bwd_bound = bounds[name]
-        with switched([(swa, "SWIN_KERNEL_PACKED", packed)]):
-            def run(entry):
-                leaves = [qkv.clone().requires_grad_(), bias.clone().requires_grad_()]
-                out = entry(*leaves, mask, scale, H, n_windows=nW)
-                return leaves, out
-
-            leaves, out = run(swa.swin_attention_qkv)
-            grads = torch.autograd.grad(out, leaves, do, retain_graph=True)
-            again = torch.autograd.grad(out, leaves, do, retain_graph=True)
-            ref_leaves, ref = run(swa.swin_attention_qkv_plain)
-            ref_grads = torch.autograd.grad(ref, ref_leaves, do, retain_graph=True)
-            torch.cuda.synchronize()
-            fwd_err = float((out - ref).abs().max())
-            rel = {n: float((a - b).abs().max() / b.abs().max())
-                   for n, a, b in zip(("dqkv", "dbias"), grads, ref_grads)}
-            same_bits = torch.equal(grads[1], again[1])
-            with torch.no_grad():
-                ms = cuda_ms(torch, lambda: swa.swin_attention_qkv(qkv, bias, mask, scale, H,
-                                                                   n_windows=nW), reps=10)
-                plain_ms = cuda_ms(torch, lambda: swa.swin_attention_qkv_plain(
-                    qkv, bias, mask, scale, H, n_windows=nW), reps=3)
-            bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(out, leaves, do,
-                                                                retain_graph=True), reps=10)
-            bwd_plain_ms = cuda_ms(torch, lambda: torch.autograd.grad(
-                ref, ref_leaves, do, retain_graph=True), reps=3)
-            del ref, ref_grads, ref_leaves, grads, again
-            say(f"[{name} qkv entry, {stage}: qkv ({Bw}, {T}, {3 * C}) H={H}] "
-                f"max_abs_err={fwd_err:.3e} rel_err "
-                + " ".join(f"{n}={e:.3e}" for n, e in rel.items())
-                + f" same_bits_on_rerun={same_bits} fwd_ms={ms:.4f} "
-                f"(plain {plain_ms:.4f}, sdpa {sdpa_ms:.4f}) bwd_ms={bwd_ms:.4f} "
-                f"(plain {bwd_plain_ms:.4f}) bound_ms={fwd_bound[0]:.5f} / {bwd_bound[0]:.5f}")
-            if not (fwd_err <= K4_FWD_TOL and all(e <= K4_GRAD_RTOL for e in rel.values())
-                    and same_bits):
-                raise AssertionError(f"{name} qkv entry, {stage}: {fwd_err}, {rel}, {same_bits}")
+        sdpa_bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+            o4, sdpa_leaves, do.view(Bw, T, H, D).transpose(1, 2), retain_graph=True), reps=5)
+    del q4, k4, v4, o4, full_mask, sdpa_leaves
+    tag = f"K4a packed qkv entry, {stage}"
+    fwd_bound, bwd_bound = bounds["K4b batched"]  # the entry runs from bias and mask
+    with switched([(swa, "SWIN_KERNEL_PACKED", True)]):
+        def run(entry):
             leaves = [qkv.clone().requires_grad_(), bias.clone().requires_grad_()]
-            torch.cuda.synchronize()
-            # two passes: the tracer can miss the first launch of its window
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(2):
-                    out = swa.swin_attention_qkv(*leaves, mask, scale, H, n_windows=nW)
-                    torch.autograd.grad(out, leaves, do)
-                torch.cuda.synchronize()
-            del leaves, out
-        kernels = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                total, count = kernels.get(e.name, (0.0, 0))
-                kernels[e.name] = (total + e.time_range.end - e.time_range.start, count + 1)
-        say(f"[{name} qkv entry, {stage}] every device kernel of two forwards and backwards: "
-            + "; ".join(f"{n[:70]} {c}x {t / 1e3:.3f} ms"
-                        for n, (t, c) in sorted(kernels.items(), key=lambda kv: -kv[1][0])))
-        base = sorted(m.group(1) if (m := re.search(r"::(\w+)[<(]", n)) else n for n in kernels)
-        if not packed and base != ["bwd_kernel", "fwd_kernel", "reduce_bias_kernel"]:
-            raise AssertionError(f"the batched qkv entry ran other kernels: {list(kernels)}")
-        if not {"fwd_kernel", "bwd_kernel"} <= set(base):
-            raise AssertionError(f"{name} qkv entry: the profile shows no K4 launch")
+            out = entry(*leaves, mask, scale, H, n_windows=nW)
+            return leaves, out
+
+        leaves, out = run(swa.swin_attention_qkv)
+        grads = torch.autograd.grad(out, leaves, do, retain_graph=True)
+        again = torch.autograd.grad(out, leaves, do, retain_graph=True)
+        ref_leaves, ref = run(swa.swin_attention_qkv_plain)
+        ref_grads = torch.autograd.grad(ref, ref_leaves, do, retain_graph=True)
+        torch.cuda.synchronize()
+        fwd_err = float((out - ref).abs().max())
+        rel = {n: float((a - b).abs().max() / b.abs().max())
+               for n, a, b in zip(("dqkv", "dbias"), grads, ref_grads)}
+        bwd_err = max(float((a - b).abs().max()) for a, b in zip(grads, ref_grads))
+        same_bits = torch.equal(grads[1], again[1])
+        with torch.no_grad():
+            ms = cuda_ms(torch, lambda: swa.swin_attention_qkv(qkv, bias, mask, scale, H,
+                                                               n_windows=nW), reps=10)
+            plain_ms = cuda_ms(torch, lambda: swa.swin_attention_qkv_plain(
+                qkv, bias, mask, scale, H, n_windows=nW), reps=3)
+        bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(out, leaves, do,
+                                                            retain_graph=True), reps=10)
+        bwd_plain_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+            ref, ref_leaves, do, retain_graph=True), reps=3)
+        del ref, ref_grads, ref_leaves, grads, again
+        say(f"[{tag}: qkv ({Bw}, {T}, {3 * C}) H={H}] "
+            f"max_abs_err={fwd_err:.3e} / {bwd_err:.3e} rel_err "
+            + " ".join(f"{n}={e:.3e}" for n, e in rel.items())
+            + f" same_bits_on_rerun={same_bits} fwd_ms={ms:.4f} "
+            f"(plain {plain_ms:.4f}, sdpa {sdpa_ms:.4f}) bwd_ms={bwd_ms:.4f} "
+            f"(plain {bwd_plain_ms:.4f}, sdpa {sdpa_bwd_ms:.4f}) "
+            f"bound_ms={fwd_bound[0]:.5f} / {bwd_bound[0]:.5f}")
+        if not (fwd_err <= K4_FWD_TOL and all(e <= K4_GRAD_RTOL for e in rel.values())
+                and same_bits):
+            raise AssertionError(f"{tag}: {fwd_err}, {rel}, {same_bits}")
+        leaves = [qkv.clone().requires_grad_(), bias.clone().requires_grad_()]
+        kernels = profiled_kernels(torch, lambda: torch.autograd.grad(
+            swa.swin_attention_qkv(*leaves, mask, scale, H, n_windows=nW), leaves, do))
+        del leaves, out
+    say(f"[{tag}] every device kernel of four forwards and backwards: "
+        + "; ".join(f"{n[:70]} {c}x {t / 1e3:.3f} ms"
+                    for n, (t, c) in sorted(kernels.items(), key=lambda kv: -kv[1][0])))
+    check_kernel_list(tag, kernels, ["bwd_kernel", "fwd_kernel", "reduce_bias_kernel"])
     del qkv, do
     torch.cuda.empty_cache()
+    return {"fwd": dict(max_abs_err=fwd_err, ms=ms, plain_ms=plain_ms, bound_ms=fwd_bound[0],
+                        bound_by=fwd_bound[1], library_ms=sdpa_ms),
+            "bwd": dict(max_abs_err=bwd_err, ms=bwd_ms, plain_ms=bwd_plain_ms,
+                        bound_ms=bwd_bound[0], bound_by=bwd_bound[1], library_ms=sdpa_bwd_ms)}
+
+
+def device_kernels(prof):
+    """{name: (microseconds, launches)} of the device kernels in a profile."""
+    from torch.autograd import DeviceType
+
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            total, count = kernels.get(e.name, (0.0, 0))
+            kernels[e.name] = (total + e.time_range.end - e.time_range.start, count + 1)
+    return kernels
+
+
+def device_ms(torch, fn, kernels, reps=10):
+    """Device milliseconds one call of ``fn`` spends in the kernels whose
+    names contain each of ``kernels``, from the profiler (each kernel's
+    durations summed over its own launches): the kernels' time without the
+    host's between calls, which CUDA events around back-to-back calls count
+    where a call's host work outlasts its kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    found = device_kernels(prof)
+    total = 0.0
+    for part in kernels:
+        hits = [tc for n, tc in found.items() if part in n]
+        if not hits:
+            raise AssertionError(f"the profile shows no {part} launch: {list(found)}")
+        total += sum(t for t, _ in hits) / sum(c for _, c in hits)
+    return total / 1e3
+
+
+def profiled_kernels(torch, fn, passes=4):
+    """:func:`device_kernels` of ``passes`` calls of ``fn`` under the
+    profiler, synchronised after each: the tracer can drop a launch (one of
+    two launches of a kernel was seen in some runs, none in one), so a
+    kernel list is read over several passes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(passes):
+            fn()
+            torch.cuda.synchronize()
+    return device_kernels(prof)
+
+
+def check_kernel_list(tag, kernels, want):
+    """The profiled device kernels of an entry must be exactly ``want``
+    (base names): the port's kernels and no copy, fill or add."""
+    base = sorted(m.group(1) if (m := re.search(r"::(\w+)[<(]", n)) else n for n in kernels)
+    if base != want:
+        raise AssertionError(f"{tag} ran other kernels than {want}: {list(kernels)}")
 
 
 SWIN_TRAIN_BF16_ARGS = [
@@ -1257,7 +1315,9 @@ def phase_swin_train(torch):
 
 def phase_swin_batched(torch):
     """The same path with the batched variant (K4b): 112 images, one step
-    and one evaluation batch."""
+    and one evaluation batch.  The qkv entry launches the same kernels as
+    under the packed variant; this short run gives K4b's rows their
+    launches on the main path, counted under K4b's counters."""
     summary, launches, wall = run_swin_train(torch, per_class=14, packed=False)
     say("[swin-train-batched] expected K4b launches: fwd 20, bwd 10")
     report_train("swin-train-batched", summary, wall, "K4b", launches,
@@ -1266,23 +1326,21 @@ def phase_swin_batched(torch):
 
 
 def phase_swin_ab(torch):
-    """K4a (packed) and K4b (batched) against the materialising window
-    attention (models/swin.py USE_SWIN_WINDOW_KERNEL off) at batch 112, and
-    a profiled step of each variant: K4a and K4b launch the same window
-    core, so their difference is the packed contract's additive term and
-    its gradient."""
+    """The window kernels (K4a, as the model calls them) against the
+    materialising window attention (models/swin.py USE_SWIN_WINDOW_KERNEL
+    off) at batch 112, and a profiled step with the kernels.  The batched
+    setting is not a turn of its own: the model's qkv entry launches the
+    same window core from bias and mask under either setting."""
     from vit_reranking_tpu_torch.models import swin
     from vit_reranking_tpu_torch.ops import swin_attention as swa
 
-    on = (swin, "USE_SWIN_WINDOW_KERNEL", True)
-    variants = {"K4a packed": [on, (swa, "SWIN_KERNEL_PACKED", True)],
-                "K4b batched": [on, (swa, "SWIN_KERNEL_PACKED", False)],
+    variants = {"K4a packed": [(swin, "USE_SWIN_WINDOW_KERNEL", True),
+                               (swa, "SWIN_KERNEL_PACKED", True)],
                 "off (materialising)": [(swin, "USE_SWIN_WINDOW_KERNEL", False)]}
     ab_and_profile(torch, "swin-train", SWIN_TRAIN_ARGS + ["--synthetic_per_class", "14"],
-                   variants, ("K4a packed", "K4b batched", "off (materialising)",
-                              "off (materialising)", "K4b batched", "K4a packed"),
-                   ("K4a packed", "K4b batched"),
-                   ("fwd_kernel", "bwd_kernel", "reduce_add_kernel", "reduce_bias_kernel"),
+                   variants, ("K4a packed", "off (materialising)", "off (materialising)",
+                              "K4a packed"),
+                   ("K4a packed",), ("fwd_kernel", "bwd_kernel", "reduce_bias_kernel"),
                    top=40)
 
 
@@ -1435,11 +1493,12 @@ def phase_k3_bf16(torch):
 
 
 def phase_k4_bf16(torch):
-    """K4's bf16 form at Swin-T stage 0 and batch 112 (G=336, nW=64, T=49,
-    D=32, the shifted-window mask): the packed (K4a) and batched (K4b)
-    contracts and the model's qkv entry against their plain versions,
+    """K4's bf16 form (csrc/swin_attention_bf16.cu) at Swin-T stage 0 and
+    batch 112 (G=336, nW=64, T=49, D=32, the shifted-window mask): the
+    packed (K4a) and batched (K4b) contracts against their plain versions,
     forward and backward, the gradients the same bits on a rerun, with SDPA
-    in bf16 over the same windows (float mask) as the yardstick."""
+    in bf16 over the same windows (float mask) as the yardstick; then the
+    model's qkv entry at stages 0, 1 and 2 (:func:`k4_bf16_qkv_entry`)."""
     import torch.nn.functional as F
     from torch.nn.attention import sdpa_kernel
 
@@ -1496,14 +1555,17 @@ def phase_k4_bf16(torch):
         abs_bwd = max(float((a.float() - b.float()).abs().max())
                       for a, b in zip(grads, ref_grads))
         same_bits = all(torch.equal(a, b) for a, b in zip(grads, again))
+        reduce = "reduce_add_kernel" if "packed" in name else "reduce_bias_kernel"
         with torch.no_grad():
             ms = cuda_ms(torch, lambda: fn(*operands), reps=20)
+            dev_ms = device_ms(torch, lambda: fn(*operands), ["window_fwd_kernel"])
             plain_ms = cuda_ms(torch, lambda: plain(*operands), reps=3)
-        bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(out, leaves, gout,
-                                                            retain_graph=True), reps=20)
+        bwd = lambda: torch.autograd.grad(out, leaves, gout, retain_graph=True)
+        bwd_ms = cuda_ms(torch, bwd, reps=20)
+        bwd_dev_ms = device_ms(torch, bwd, ["window_bwd_kernel", reduce])
         bwd_plain_ms = cuda_ms(torch, lambda: torch.autograd.grad(ref, ref_leaves, gout,
                                                                   retain_graph=True), reps=3)
-        del out, ref, grads, again, ref_grads, leaves, ref_leaves
+        del out, ref, grads, again, ref_grads, leaves, ref_leaves, bwd
         # bf16 q, k, v (and dO) read, o (dq, dk, dv) written; the additive
         # term f32 (K4a: its diagonal (T, T) blocks), its gradient written
         qkv_bytes = q.numel() * elem
@@ -1513,12 +1575,14 @@ def phase_k4_bf16(torch):
         bwd_bound = bound(7 * qkv_bytes + add_bytes + operands[3].numel() * 4, ops_bwd,
                           BF16_OPS_PER_S)
         say(f"[{name} bf16 fwd, stage 0: G={G} nW={nW} T={T} D={D}] rel_err={fwd_err:.3e} "
-            f"(max_abs_err={abs_fwd:.3e}) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"sdpa_bf16_ms={sdpa_fwd:.4f} bound_ms={fwd_bound[0]:.5f} ({fwd_bound[1]})")
+            f"(max_abs_err={abs_fwd:.3e}) kernel_ms={ms:.4f} (device {dev_ms:.4f}) "
+            f"plain_ms={plain_ms:.4f} sdpa_bf16_ms={sdpa_fwd:.4f} "
+            f"bound_ms={fwd_bound[0]:.5f} ({fwd_bound[1]})")
         say(f"[{name} bf16 bwd, stage 0: G={G} nW={nW} T={T} D={D}] rel_err "
             + " ".join(f"{n}={e:.3e}" for n, e in rel.items())
             + f" (max_abs_err={abs_bwd:.3e}) same_bits_on_rerun={same_bits} "
-            f"kernel_ms={bwd_ms:.4f} plain_ms={bwd_plain_ms:.4f} sdpa_bf16_bwd_ms={sdpa_bwd:.4f} "
+            f"kernel_ms={bwd_ms:.4f} (device {bwd_dev_ms:.4f}, with the {reduce[:-7]}) "
+            f"plain_ms={bwd_plain_ms:.4f} sdpa_bf16_bwd_ms={sdpa_bwd:.4f} "
             f"bound_ms={bwd_bound[0]:.5f} ({bwd_bound[1]})")
         if not fwd_err <= BF16_FWD_TOL:
             raise AssertionError(f"{name} bf16 forward disagrees: {fwd_err}")
@@ -1526,49 +1590,134 @@ def phase_k4_bf16(torch):
         if bad or not same_bits:
             raise AssertionError(f"{name} bf16 backward: {bad}, same bits {same_bits}")
         entries[name] = {
-            "fwd": dict(max_abs_err=abs_fwd, ms=ms, plain_ms=plain_ms, bound_ms=fwd_bound[0],
-                        bound_by=fwd_bound[1], library_ms=sdpa_fwd),
-            "bwd": dict(max_abs_err=abs_bwd, ms=bwd_ms, plain_ms=bwd_plain_ms,
-                        bound_ms=bwd_bound[0], bound_by=bwd_bound[1], library_ms=sdpa_bwd),
+            "fwd": dict(max_abs_err=abs_fwd, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                        bound_ms=fwd_bound[0], bound_by=fwd_bound[1], library_ms=sdpa_fwd),
+            "bwd": dict(max_abs_err=abs_bwd, ms=bwd_ms, device_ms=bwd_dev_ms,
+                        plain_ms=bwd_plain_ms, bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+                        library_ms=sdpa_bwd),
         }
     say(f"[K4 bf16] sdpa backend in bf16 with a float attn_mask: {backend.name}")
-    del q, k, v, do, add
+    del q, k, v, do, add, bias, mask
+    torch.cuda.empty_cache()
+    # the model's entry on a bf16 projection, read in place, at stages 0-2
+    rows = {}
+    for stage, nW_s, H_s, res_s in (("stage 0", 64, 3, 56), ("stage 1", 16, 6, 28),
+                                    ("stage 2", 4, 12, 14)):
+        rows[stage] = k4_bf16_qkv_entry(torch, stage, B, nW_s, H_s, T, D, res_s, gen,
+                                        profiled=stage == "stage 0")
+    return entry_rows(rows["stage 0"], entries["K4a packed"])
 
-    # the model's entry on a bf16 projection, read in place
-    Bw, C = B * nW, H * D
+
+def entry_rows(entry, contract):
+    """The kernels-JSON rows of K4a (fwd, bwd): the numbers of the model's
+    qkv entry at stage 0, which is what the main path's counted launches
+    run (the core with bias and mask, read in place), and beside them the
+    packed contract's own as ``contract_*``."""
+    return {d: {**entry[d], **{f"contract_{k}": v for k, v in contract[d].items()
+                               if k not in ("bound_by", "library_ms")}}
+            for d in ("fwd", "bwd")}
+
+
+def k4_bf16_qkv_entry(torch, stage, B, nW, H, T, D, res, gen, profiled):
+    """The model's entry on a bf16 (B nW, T, 3 H D) projection, as the
+    model calls it (``SWIN_KERNEL_PACKED`` on; the batched setting launches
+    the same kernels and only counts them apart): against its plain version
+    (forward within 1e-2, gradients within 2e-2 of the largest magnitude,
+    the same bits on a rerun), times beside the byte bound (q, k, v in
+    place, o out, bias and mask; the backward with dO, dq, dk, dv and
+    dbias) and SDPA in bf16 on the same strided windows; ``profiled``: four
+    forwards and backwards under the profiler, whose kernels must be the
+    bf16 core's forward and backward and the bias reduction, nothing else.
+    Times: the call's (CUDA events over back-to-back calls, the host's work
+    included) and the kernels' device time (:func:`device_ms`).  Returns the
+    forward's and backward's numbers for the kernels JSON."""
+    import torch.nn.functional as F
+    from torch.nn.attention import sdpa_kernel
+
+    from vit_reranking_tpu_torch.models.swin import _shift_attn_mask
+    from vit_reranking_tpu_torch.ops import swin_attention as swa
+
+    Bw, C, scale = B * nW, H * D, D ** -0.5
     qkv = torch.randn(Bw, T, 3 * C, device="cuda", generator=gen).bfloat16()
     dout = torch.randn(Bw, T, C, device="cuda", generator=gen).bfloat16()
-    for packed in (True, False):
-        with switched([(swa, "SWIN_KERNEL_PACKED", packed)]):
-            def run(entry):
-                leaves = [qkv.clone().requires_grad_(), bias.clone().requires_grad_()]
-                return leaves, entry(*leaves, mask, scale, H, n_windows=nW)
+    bias = torch.randn(H, T, T, device="cuda", generator=gen)
+    mask = torch.from_numpy(_shift_attn_mask(res, res, 7, 3)).cuda()
+    part = Bw * T * C * 2
+    small = (bias.numel() + mask.numel()) * 4
+    fwd_bound = bound(4 * part + small, 4 * T * T * D * H * Bw, BF16_OPS_PER_S)
+    bwd_bound = bound(7 * part + small + bias.numel() * 4, 10 * T * T * D * H * Bw,
+                      BF16_OPS_PER_S)
+    q4, k4, v4 = qkv.view(Bw, T, 3, H, D).permute(2, 0, 3, 1, 4)
+    full_mask = (bias[None] + mask.repeat(B, 1, 1)[:, None]).bfloat16()
+    backend = sdpa_backend(q4[:8], k4[:8], v4[:8], attn_mask=full_mask[:8], scale=scale)
+    sdpa_leaves = [t.detach().requires_grad_() for t in (q4, k4, v4)]
+    with sdpa_kernel([backend]):
+        o4 = F.scaled_dot_product_attention(*sdpa_leaves, attn_mask=full_mask, scale=scale)
+        sdpa_fwd = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=full_mask, scale=scale), reps=10)
+        sdpa_bwd = cuda_ms(torch, lambda: torch.autograd.grad(
+            o4, sdpa_leaves, dout.view(Bw, T, H, D).transpose(1, 2), retain_graph=True),
+            reps=10)
+    del q4, k4, v4, o4, full_mask, sdpa_leaves
+    tag = f"K4a packed bf16 qkv entry, {stage}"
+    with switched([(swa, "SWIN_KERNEL_PACKED", True)]):
+        def run(entry):
+            leaves = [qkv.clone().requires_grad_(), bias.clone().requires_grad_()]
+            out = entry(*leaves, mask, scale, H, n_windows=nW)
+            return leaves, out
 
-            leaves, out = run(swa.swin_attention_qkv)
-            grads = torch.autograd.grad(out, leaves, dout, retain_graph=True)
-            again = torch.autograd.grad(out, leaves, dout, retain_graph=True)
-            ref_leaves, ref = run(swa.swin_attention_qkv_plain)
-            ref_grads = torch.autograd.grad(ref, ref_leaves, dout)
-            torch.cuda.synchronize()
-            fwd_err = rel_err(out, ref)
-            rel = {n: rel_err(a, b) for n, a, b in zip(("dqkv", "dbias"), grads, ref_grads)}
-            same_bits = all(torch.equal(a, b) for a, b in zip(grads, again))
-            with torch.no_grad():
-                ms = cuda_ms(torch, lambda: swa.swin_attention_qkv(qkv, bias, mask, scale, H,
-                                                                   n_windows=nW), reps=20)
-            bwd_ms = cuda_ms(torch, lambda: torch.autograd.grad(out, leaves, dout,
-                                                                retain_graph=True), reps=20)
-            del leaves, out, grads, again, ref_leaves, ref, ref_grads
-        name = "K4a packed" if packed else "K4b batched"
-        say(f"[{name} bf16 qkv entry, stage 0: qkv ({Bw}, {T}, {3 * C}) H={H}] "
+        leaves, out = run(swa.swin_attention_qkv)
+        grads = torch.autograd.grad(out, leaves, dout, retain_graph=True)
+        again = torch.autograd.grad(out, leaves, dout, retain_graph=True)
+        ref_leaves, ref = run(swa.swin_attention_qkv_plain)
+        ref_grads = torch.autograd.grad(ref, ref_leaves, dout, retain_graph=True)
+        torch.cuda.synchronize()
+        fwd_err = rel_err(out, ref)
+        abs_fwd = float((out.float() - ref.float()).abs().max())
+        rel = {n: rel_err(a, b) for n, a, b in zip(("dqkv", "dbias"), grads, ref_grads)}
+        abs_bwd = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(grads, ref_grads))
+        same_bits = all(torch.equal(a, b) for a, b in zip(grads, again))
+        fwd = lambda: swa.swin_attention_qkv(qkv, bias, mask, scale, H, n_windows=nW)
+        bwd = lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
+        with torch.no_grad():
+            ms = cuda_ms(torch, fwd, reps=20)
+            dev_ms = device_ms(torch, fwd, ["window_fwd_kernel"])
+            plain_ms = cuda_ms(torch, lambda: swa.swin_attention_qkv_plain(
+                qkv, bias, mask, scale, H, n_windows=nW), reps=3)
+        bwd_ms = cuda_ms(torch, bwd, reps=20)
+        bwd_dev_ms = device_ms(torch, bwd, ["window_bwd_kernel", "reduce_bias_kernel"])
+        bwd_plain_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+            ref, ref_leaves, dout, retain_graph=True), reps=3)
+        del out, grads, again, ref_leaves, ref, ref_grads, fwd, bwd
+        say(f"[{tag}: qkv ({Bw}, {T}, {3 * C}) H={H}] "
             f"rel_err={fwd_err:.3e} " + " ".join(f"{n}={e:.3e}" for n, e in rel.items())
-            + f" same_bits_on_rerun={same_bits} fwd_ms={ms:.4f} bwd_ms={bwd_ms:.4f}")
+            + f" (max_abs_err {abs_fwd:.3e} / {abs_bwd:.3e}) same_bits_on_rerun={same_bits} "
+            f"fwd_ms={ms:.4f} (device {dev_ms:.4f}; plain {plain_ms:.4f}; bound "
+            f"{fwd_bound[0]:.5f}, sdpa_bf16 {sdpa_fwd:.4f}) bwd_ms={bwd_ms:.4f} (device "
+            f"{bwd_dev_ms:.4f} with the reduce; plain {bwd_plain_ms:.4f}; bound "
+            f"{bwd_bound[0]:.5f}, sdpa_bf16 {sdpa_bwd:.4f})")
         if not (fwd_err <= BF16_FWD_TOL and all(e <= BF16_GRAD_TOL for e in rel.values())
                 and same_bits):
-            raise AssertionError(f"{name} bf16 qkv entry: {fwd_err}, {rel}, {same_bits}")
+            raise AssertionError(f"{tag}: {fwd_err}, {rel}, {same_bits}")
+        if profiled:
+            kernels = profiled_kernels(torch, lambda: torch.autograd.grad(
+                swa.swin_attention_qkv(*leaves, mask, scale, H, n_windows=nW), leaves, dout))
+            say(f"[{tag}] every device kernel of four forwards and backwards: " + "; ".join(
+                f"{n[:70]} {c}x {t / 1e3:.3f} ms"
+                for n, (t, c) in sorted(kernels.items(), key=lambda kv: -kv[1][0])))
+            check_kernel_list(tag, kernels,
+                              ["reduce_bias_kernel", "window_bwd_kernel", "window_fwd_kernel"])
+        del leaves
+    say(f"[K4 bf16 qkv entry, {stage}] sdpa backend in bf16 with a float attn_mask: "
+        f"{backend.name}")
     del qkv, dout
     torch.cuda.empty_cache()
-    return entries["K4a packed"]
+    return {"fwd": dict(max_abs_err=abs_fwd, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                        bound_ms=fwd_bound[0], bound_by=fwd_bound[1], library_ms=sdpa_fwd),
+            "bwd": dict(max_abs_err=abs_bwd, ms=bwd_ms, device_ms=bwd_dev_ms,
+                        plain_ms=bwd_plain_ms, bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+                        library_ms=sdpa_bwd)}
 
 
 def phase_train_bf16(torch):
@@ -1621,7 +1770,7 @@ def phase_swin_train_bf16(torch):
                     "f32, K4a packed": k4a},
                    ("K4a packed", "off (materialising)", "off (materialising)", "K4a packed",
                     "f32, K4a packed", "f32, K4a packed", "K4a packed"),
-                   ("K4a packed",), ("fwd_kernel", "bwd_kernel", "reduce_add_kernel"),
+                   ("K4a packed",), ("fwd_kernel", "bwd_kernel", "reduce_bias_kernel"),
                    flags={"f32, K4a packed": F32})
     return {"fwd": launches["fwd_bf16"], "bwd": launches["bwd_bf16"]}
 
@@ -1796,11 +1945,11 @@ def main():
              replaces="vit_reranking_tpu/ops/attention_pallas.py:66",
              launches=k3_bf16_launches["bwd"], **k3_bf16["bwd"]),
         dict(name="swin_attention_packed_fwd_bf16", route="cuda",
-             source="vit_reranking_tpu_torch/csrc/swin_attention.cu",
+             source="vit_reranking_tpu_torch/csrc/swin_attention_bf16.cu",
              replaces="vit_reranking_tpu/ops/swin_attention_pallas.py:218",
              launches=k4a_bf16_launches["fwd"], **k4a_bf16["fwd"]),
         dict(name="swin_attention_packed_bwd_bf16", route="cuda",
-             source="vit_reranking_tpu_torch/csrc/swin_attention.cu",
+             source="vit_reranking_tpu_torch/csrc/swin_attention_bf16.cu",
              replaces="vit_reranking_tpu/ops/swin_attention_pallas.py:234",
              launches=k4a_bf16_launches["bwd"], **k4a_bf16["bwd"]),
     ]

@@ -10,7 +10,9 @@ the card.  Here, at small sizes, with inputs made by numpy from a seed:
     mode, forward and dq, dk, dv, within 1e-2 of the largest magnitude;
   * K4 in bf16: the packed and batched contracts' plain versions and the
     model's qkv entry against swin_attention_pallas in interpret mode,
-    masked and unmasked, the same bar (dadd / dbias f32);
+    masked and unmasked, the same bar (dadd / dbias f32), and the batched
+    plain version on bias and mask (what the card runs for the packed qkv
+    entry) against the JAX packed kernel, dbias against its bias gradient;
   * CvT and Swin forwards in bf16, with and without the narrowed softmax,
     on carried weights: embedding cosine > 0.995 to the JAX package's
     (the bar of tests/test_models.py), f32 outputs, and the port's bf16
@@ -182,6 +184,35 @@ def test_k4a_bf16_packed_contract_matches_jax():
     for name, a, b in zip(("dq", "dk", "dv", "dadd"), grads, ref_grads):
         _assert_close(a, b, name)
     assert grads[3].dtype == torch.float32
+
+
+@pytest.mark.parametrize("shifted", [False, True], ids=["unshifted", "shifted"])
+def test_k4_bf16_batched_plain_matches_jax_packed_kernel(shifted):
+    """What the card runs for the packed qkv entry in bf16: the batched
+    plain version on bias and mask (no packed additive term) against the
+    JAX packed kernel in interpret mode on the same bf16 windows (Swin-T
+    stage 2, shifted or not): the output, dq, dk, dv, and dbias against the
+    bias gradient of the JAX packed path, within 1e-2 of the largest
+    magnitude."""
+    rng = np.random.default_rng(3)
+    G, nW, T, D, H = 4, 4, 49, 32, 2
+    (q, jq), (k, jk), (v, jv), (do, jdo) = (
+        _bf16(rng.standard_normal((G, nW, T, D)).astype(np.float32)) for _ in range(4))
+    bias = (0.5 * rng.standard_normal((H, T, T))).astype(np.float32)
+    mask = swin._shift_attn_mask(14, 14, 7, 3) if shifted else None
+    jmask = None if mask is None else jnp.asarray(mask)
+    ref, vjp = jax.vjp(lambda a, b, c, d: jax_swa.swin_window_attention_packed(
+        a, b, c, d, jmask, D ** -0.5, True), jq, jk, jv, jnp.asarray(bias))
+    ref_grads = vjp(jdo)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    leaves.append(torch.from_numpy(bias).requires_grad_())
+    out = swa.swin_window_attention_plain(*leaves, None if mask is None
+                                          else torch.from_numpy(mask), D ** -0.5)
+    grads = torch.autograd.grad(out, leaves, do)
+    assert out.dtype == torch.bfloat16 and grads[3].dtype == torch.float32
+    _assert_close(out, ref, "out")
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), grads, ref_grads):
+        _assert_close(a, b, name)
 
 
 # ---- model forwards -----------------------------------------------------------

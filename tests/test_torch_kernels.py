@@ -22,7 +22,10 @@ contracts and through the qkv entry that reads the model's projection in
 place, and give bitwise the same dbias/dadd from run to run (fixed-order
 sums).  Their bf16 forms (bf16 operands and gradients, f32 sums, the TPU
 kernels' rounding points) match their plain versions within 1e-2 (forward)
-and 2e-2 (gradients) of the largest magnitude, and repeat their bits.
+and 2e-2 (gradients) of the largest magnitude, and repeat their bits; K4's
+(csrc/swin_attention_bf16.cu) over the gate's edges (T 16 to 64, D 16 to
+64, D = 24 padded by its tensor maps), through both contracts and the qkv
+entry, with a last run of images shorter than the others.
 """
 
 import numpy as np
@@ -668,3 +671,75 @@ def test_swin_bf16_qkv_entry_matches_plain_on_card(cuda, monkeypatch, packed, G,
     assert _rel(out, ref) <= BF16_FWD_TOL
     for a, b, name in zip(grads, ref_grads, ("dqkv", "dbias")):
         assert _rel(a, b) <= BF16_GRAD_TOL, name
+
+
+# K4's bf16 core over the gate's edges: every T in {16, 33, 49, 64} with
+# every D in {16, 24, 32, 64} (D = 24 read and written as 32 wide by the
+# tensor maps), half of them masked, through the batched and packed
+# contracts and the qkv entry (the model's layout, read in place).
+SWIN_BF16_GATE = [(T, D) for T in (16, 33, 49, 64) for D in (16, 24, 32, 64)]
+
+
+def _swin_bf16_case(cuda, monkeypatch, layout, B, nW, T, D, H, masked):
+    """One bf16 call and its rerun against the plain version: forward
+    within 1e-2, gradients within 2e-2 of their largest magnitude, the
+    gradients the same bits on the rerun, one bf16 launch each way."""
+    _, _, _, _, bias, mask = _swin_inputs(cuda, H, nW, T, D, H, masked)
+    mask = _swin_mask(cuda, nW, T, mask)
+    scale = D ** -0.5
+    gen = torch.Generator(device=cuda).manual_seed(T * 100 + D)
+    if layout == "qkv":
+        monkeypatch.setattr(swa, "SWIN_KERNEL_PACKED", True)
+        fn = swa.swin_window_attention_packed
+        ins = (torch.randn(B * nW, T, 3 * H * D, device=cuda, generator=gen).bfloat16(), bias)
+        do = torch.randn(B * nW, T, H * D, device=cuda, generator=gen).bfloat16()
+        run_kernel = lambda *a: swa.swin_attention_qkv(*a, mask, scale, H, n_windows=nW)
+        run_plain = lambda *a: swa.swin_attention_qkv_plain(*a, mask, scale, H, n_windows=nW)
+    else:
+        fn = swa.swin_window_attention_packed if layout == "packed" else swa.swin_window_attention
+        q, k, v, do = (torch.randn(H * B, nW, T, D, device=cuda, generator=gen).bfloat16()
+                       for _ in range(4))
+        ins = (q, k, v, bias)
+        run_kernel = lambda *a: fn(*a, mask, scale)
+        run_plain = lambda *a: swa.swin_window_attention_plain(*a, mask, scale)
+
+    def run(entry):
+        leaves = [t.clone().requires_grad_() for t in ins]
+        out = entry(*leaves)
+        return out, torch.autograd.grad(out, leaves, do)
+
+    before = (fn.fwd_bf16_launches, fn.bwd_bf16_launches, fn.fwd_launches, fn.bwd_launches)
+    out, grads = run(run_kernel)
+    ref, ref_grads = run(run_plain)
+    _, again = run(run_kernel)
+    torch.cuda.synchronize()
+    assert (fn.fwd_bf16_launches, fn.bwd_bf16_launches, fn.fwd_launches, fn.bwd_launches) == (
+        before[0] + 2, before[1] + 2, before[2], before[3])
+    assert out.dtype == torch.bfloat16 and _rel(out, ref) <= BF16_FWD_TOL
+    for a, b, c in zip(grads, ref_grads, again):
+        assert torch.isfinite(a).all() and _rel(a, b) <= BF16_GRAD_TOL
+        assert torch.equal(a, c)  # the same bits on the rerun
+    assert grads[-1].dtype == torch.float32  # dbias / dadd
+
+
+@pytest.mark.parametrize("layout", ["batched", "packed", "qkv"])
+@pytest.mark.parametrize("T,D", SWIN_BF16_GATE, ids=[f"T{T}-D{D}" for T, D in SWIN_BF16_GATE])
+def test_swin_bf16_core_over_the_gate_on_card(cuda, monkeypatch, layout, T, D):
+    _swin_bf16_case(cuda, monkeypatch, layout, 3, 4, T, D, 2, (T + D // 8) % 2 == 0)
+
+
+@pytest.mark.parametrize("layout", ["batched", "packed", "qkv"])
+def test_swin_bf16_core_short_last_run_on_card(cuda, monkeypatch, layout):
+    """Swin-T stage 2's 12 heads and shifted windows with 13 images, which
+    the runs of images cut unevenly in both directions."""
+    for backward in (False, True):
+        chunk, _ = swa._persistent_runs(13, 12, 4, swa._bf16_slots(32, backward))
+        assert 13 % chunk != 0
+    _swin_bf16_case(cuda, monkeypatch, layout, 13, 4, 49, 32, 12, True)
+
+
+def test_swin_bf16_qkv_entry_refuses_misaligned_rows(cuda):
+    qkv = torch.zeros(8, 16, 3 * 16 + 8, device=cuda, dtype=torch.bfloat16)[:, :, 1:49]
+    with pytest.raises(ValueError):
+        swa.swin_attention_qkv(qkv, torch.zeros(2, 16, 16, device=cuda), None, 0.1, 2,
+                               n_windows=4)

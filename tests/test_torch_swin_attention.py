@@ -9,11 +9,24 @@ additive term; the dispatcher's layout and its None returns; the qkv entry
 dispatcher fed the same projection, forward and the gradients of qkv and
 bias (atol 1e-5).
 
+On the card the qkv entry runs the packed contract as the batched function
+(bias and mask, no (H, nblk, P T, P T) additive term): the diagonal blocks
+of _packed_add_term are bias[h] + mask[w] to the bit, and the batched plain
+version fed bias and mask matches the JAX packed kernel, forward and
+gradients with dbias against the bias gradient of the JAX packed path (its
+bf16 form in tests/test_torch_bf16.py).  The bf16 core's runs of images
+(_persistent_runs) are held to their choice, and the design choices that
+chip_k4_variants.py builds undone, edits of the kept sources' text, to
+texts the sources hold.
+
 On the CPU the port runs each contract's plain version, differentiated by
 autograd; the CUDA kernels are held against those plain versions on the card
-(tests/test_torch_kernels.py).  The JAX file's bf16 gradient case waits for
-the port's bf16 training, which has no bf16 kernel yet.
+(tests/test_torch_kernels.py).
 """
+
+import importlib.util
+import sys
+from pathlib import Path
 
 import numpy as np
 import jax
@@ -23,6 +36,7 @@ import torch
 
 import vit_reranking_tpu.ops.swin_attention_pallas as jswa
 import vit_reranking_tpu_torch.ops.swin_attention as swa
+from vit_reranking_tpu_torch.models.swin import _shift_attn_mask
 
 torch.set_num_threads(2)
 
@@ -259,3 +273,122 @@ def test_qkv_entry_returns_none_where_swin_attention_does():
         q, k, v = tq.reshape(B * nW, T, 3, H, D).permute(2, 0, 3, 1, 4)
         assert swa.swin_attention(q, k, v, tb, None, 0.1, n_windows=nW) is None
         assert swa.swin_attention_qkv(tq, tb, None, 0.1, H, n_windows=nW) is None
+
+
+@pytest.mark.parametrize("with_mask", [False, True], ids=["nomask", "mask"])
+@pytest.mark.parametrize("nW,T", [(64, 49), (16, 49), (4, 49), (8, 16)])
+def test_packed_add_term_diagonal_is_bias_plus_mask(nW, T, with_mask):
+    """Every diagonal (T, T) block of the packed additive term is bias[h] +
+    mask[w] to the bit (its off-diagonal -1e9 is a -0.0 there), so the card
+    may run the packed contract from bias and mask."""
+    rng = np.random.default_rng(9)
+    _, _, _, bias, mask = _mk(rng, 1, nW, T, 8, 3, with_mask)
+    if with_mask and T == 49:
+        mask = _shift_attn_mask(*(int(round((nW * 49) ** 0.5)),) * 2, 7, 3)
+    P = swa._pick_pack_packed(nW, T)
+    add = swa._packed_add_term(_t(bias), _t(mask), P, nW // P)
+    for w in range(nW):
+        blk, p = divmod(w, P)
+        diag = add[:, blk, p * T:(p + 1) * T, p * T:(p + 1) * T]
+        want = _t(bias) + (0.0 if mask is None else _t(mask)[w])
+        assert torch.equal(diag, want), w
+
+
+@pytest.mark.parametrize("shifted", [False, True], ids=["unshifted", "shifted"])
+def test_batched_plain_matches_jax_packed_kernel(shifted):
+    """The function the card runs for the packed qkv entry (the batched
+    plain version on bias and mask) against the JAX packed kernel in
+    interpret mode on Swin-T's windows (stage 2, shifted or not): the output
+    (atol 2e-5) and dq, dk, dv and dbias against the JAX packed path's
+    gradients, dbias through its additive term (atol 1e-4)."""
+    rng = np.random.default_rng(10)
+    nW, T, D, H, B = 4, 49, 32, 2, 2
+    q, k, v, bias, _ = _mk(rng, H * B, nW, T, D, H, False)
+    mask = _shift_attn_mask(14, 14, 7, 3) if shifted else None
+    w = rng.standard_normal(q.shape).astype(np.float32)
+    scale = D ** -0.5
+    jm = _j(mask)
+    ref, ref_grads = jax.value_and_grad(
+        lambda q, k, v, b: jnp.sum(jswa.swin_window_attention_packed(q, k, v, b, jm, scale, True)
+                                   * jnp.asarray(w)),
+        argnums=(0, 1, 2, 3))(*map(jnp.asarray, (q, k, v, bias)))
+    jout = jswa.swin_window_attention_packed(*map(jnp.asarray, (q, k, v, bias)), jm, scale, True)
+    args = [torch.from_numpy(a).requires_grad_() for a in (q, k, v, bias)]
+    out = swa.swin_window_attention_plain(*args, _t(mask), scale)
+    grads = torch.autograd.grad((out * torch.from_numpy(w)).sum(), args)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), atol=2e-5)
+    for a, b, name in zip(grads, ref_grads, ("dq", "dk", "dv", "dbias")):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4, err_msg=name)
+
+
+@pytest.mark.parametrize("B,H,nW,slots,want", [
+    (112, 3, 64, 396, (56, 2)),   # Swin-T stage 0, forward (3 blocks an SM on 132 SMs)
+    (112, 3, 64, 264, (28, 4)),   # and backward (2 an SM)
+    (112, 6, 16, 264, (14, 8)),   # stage 1, backward
+    (112, 12, 4, 396, (14, 8)),   # stage 2, forward
+    (13, 12, 4, 396, (2, 7)),     # a last run shorter than the others
+    (1, 2, 4, 264, (1, 1)),
+])
+def test_persistent_runs_choice(B, H, nW, slots, want):
+    """The bf16 core's runs of images: the least work on the busiest of the
+    persistent blocks, a unit's own cost counted as one image, and of equal
+    choices the longest runs; every image in exactly one run."""
+    chunk, runs = swa._persistent_runs(B, H, nW, slots)
+    assert (chunk, runs) == want
+    assert chunk * (runs - 1) < B <= chunk * runs
+
+
+def test_qkv_entry_packed_on_cpu_runs_the_packed_plain_version(monkeypatch):
+    """On the CPU the packed qkv entry stays the JAX package's arithmetic:
+    the full (P T, P T) packed function on _packed_add_term."""
+    rng = np.random.default_rng(11)
+    qkv, bias, mask = _qkv_case(rng, 2, 4, 2, 16, 8, True)
+    calls = []
+    real = swa.packed_attention_plain
+
+    def spy(*args):
+        calls.append(args[3].shape)
+        return real(*args)
+
+    monkeypatch.setattr(swa, "SWIN_KERNEL_PACKED", True)
+    monkeypatch.setattr(swa, "packed_attention_plain", spy)
+    out = swa.swin_attention_qkv(_t(qkv), _t(bias), _t(mask), 0.3, 2, n_windows=4)
+    P = swa._pick_pack_packed(4, 16)
+    assert calls == [(2, 4 // P, P * 16, P * 16)] and out.shape == (8, 16, 16)
+
+
+def _k4_variants():
+    """chip_k4_variants.py (a card script at the repository's root), loaded
+    without running it."""
+    root = str(Path(__file__).resolve().parents[1])
+    sys.path.insert(0, root)
+    try:
+        spec = importlib.util.spec_from_file_location("chip_k4_variants",
+                                                      Path(root) / "chip_k4_variants.py")
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+    finally:
+        sys.path.remove(root)
+    return module
+
+
+K4_VARIANTS = _k4_variants()
+
+
+@pytest.mark.parametrize("source,table,name", [
+    *(("swin_attention", "VARIANTS", n) for n in K4_VARIANTS.VARIANTS),
+    *(("swin_attention_bf16", "BF16_VARIANTS", n) for n in K4_VARIANTS.BF16_VARIANTS),
+])
+def test_k4_variant_edits_apply_to_the_kept_source(source, table, name):
+    """Each variant the card script builds is the kept source with (old,
+    new) edits applied in order (the routes that lost are kept only as
+    such edits): every old text must be in the text it edits, so that the
+    variant is what its name says (the script's build stops otherwise)."""
+    from vit_reranking_tpu_torch.ops import native
+
+    kept = (native.CSRC / f"{source}.cu").read_text()
+    text = kept
+    for old, new in getattr(K4_VARIANTS, table)[name]:
+        assert old in text, f"{name}: {old[:60]!r} is not in {source}.cu"
+        text = text.replace(old, new)
+    assert text != kept

@@ -1,7 +1,7 @@
 // Swin window attention, softmax(q k^T * scale + add) v per window, forward
 // and backward, on Hopper (sm_90a), f32 in and out, products on the tensor
-// cores; its bf16 form (q, k, v and their gradients bf16) is the section
-// "bf16" below.
+// cores; its bf16 form (q, k, v and their gradients bf16) is
+// swin_attention_bf16.cu.
 //
 // Replaces the TPU kernels of vit_reranking_tpu/ops/swin_attention_pallas.py:
 //   K4b, the batched contract: _fwd_kernel (:77, with _attn_probs :63,
@@ -77,12 +77,13 @@
 // Supported: 2 <= T <= 64, D a multiple of 8 up to 64, every stride a
 // multiple of 4 floats and every operand 16-byte aligned.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "swin_attention_common.cuh"  // Layout, layout_at, reduce_grad_add
 
 namespace {
 
@@ -258,11 +259,6 @@ struct Geo {
   int B, H, nW, T, D, P, lda;
   long long add_h, add_blk;
   float scale;
-};
-
-// Strides in floats from one image, window, head and token to the next.
-struct Layout {
-  long long b, w, h, t;
 };
 
 // Warps a window takes (16 q rows each) for NC n-tiles of 8 columns.
@@ -544,58 +540,6 @@ __global__ void __launch_bounds__(32 * kWarpsOf<NC>, DP <= 32 ? 3 : 1)
     }
 }
 
-// dbias[h][e] = sum over runs z and windows w, in that order, of
-// part[z][h][w][e] (e indexes the T x T entries).  A block sums 32 entries
-// of one head: each of its kSlices thread rows takes every kSlices-th
-// (z, w), and the slices' sums are added in a fixed order.
-constexpr int kSlices = 16;
-
-__global__ void __launch_bounds__(32 * kSlices)
-    reduce_bias_kernel(const float* __restrict__ part, float* __restrict__ dbias, int runs,
-                       int H, int nW, int TT) {
-  __shared__ float sums[kSlices][33];
-  const int e = blockIdx.x * 32 + threadIdx.x, h = blockIdx.y;
-  float acc = 0.0f;
-  if (e < TT)
-    for (int i = threadIdx.y; i < runs * nW; i += kSlices) {
-      const int z = i / nW, w = i % nW;
-      acc += part[(((long long)z * H + h) * nW + w) * TT + e];
-    }
-  sums[threadIdx.y][threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.y == 0 && e < TT) {
-    float total = 0.0f;
-#pragma unroll
-    for (int s = 0; s < kSlices; ++s) total += sums[s][threadIdx.x];
-    dbias[(long long)h * TT + e] = total;
-  }
-}
-
-// dadd (H, nblk, PT, PT): on the diagonal (T, T) blocks the sum over runs of
-// part[z][h][blk * P + p], zeros everywhere else.
-__global__ void __launch_bounds__(256)
-    reduce_add_kernel(const float* __restrict__ part, float* __restrict__ dadd, int runs, int H,
-                      int nblk, int P, int T) {
-  const int PT = P * T;
-  const long long total = (long long)H * nblk * PT * PT;
-  const long long TT = (long long)T * T;
-  const int nW = nblk * P;
-  for (long long idx = (long long)blockIdx.x * 256 + threadIdx.x; idx < total;
-       idx += (long long)gridDim.x * 256) {
-    const int c = (int)(idx % PT);
-    const int r = (int)((idx / PT) % PT);
-    const long long hb = idx / ((long long)PT * PT);
-    const int blk = (int)(hb % nblk), h = (int)(hb / nblk);
-    float acc = 0.0f;
-    if (r / T == c / T) {
-      const int w = blk * P + r / T;
-      const long long e = (long long)(r % T) * T + c % T;
-      for (int z = 0; z < runs; ++z) acc += part[(((long long)z * H + h) * nW + w) * TT + e];
-    }
-    dadd[idx] = acc;
-  }
-}
-
 // ---- launches ---------------------------------------------------------------
 
 template <typename Kernel>
@@ -673,432 +617,6 @@ Geo make_geo(int B, int H, int nW, int T, int D, int P, long long add_h, long lo
   return g;
 }
 
-Layout layout_at(const long long* strides, int i) {
-  return Layout{strides[4 * i], strides[4 * i + 1], strides[4 * i + 2], strides[4 * i + 3]};
-}
-
-
-// ---- bf16 -------------------------------------------------------------------
-//
-// The bf16 form of the window core (q, k, v, o, dO, dq, dk, dv bf16; the
-// additive term, its gradient and the partials f32), serving both
-// contracts as the f32 core does.  It keeps the TPU kernels' rounding
-// points (swin_attention_pallas.py:218-265, :63-115): scores, softmax, dp
-// and ds in f32 from bf16 products summed in f32; p normalised in f32 and
-// rounded to bf16 before P V and P^T dO; ds rounded to bf16 before dS K
-// and dS^T Q, whose f32 sums are scaled and then rounded to bf16; dadd and
-// dbias summed from the f32 ds.
-//
-// Products: mma.sync m16n8k16, bf16 operands, f32 accumulators.  The
-// k-dimension of P V is the window's kv rows, padded to 16: T = 49 takes 4
-// k-steps over 64 rows (NC = 8 score n-tiles), with p zero in the pad and
-// the pad rows of v zero-filled.  A score tile feeds the next product from
-// registers, two adjacent n-tiles packed to bf16 pairs (see
-// kv_attention.cu's bf16 section).  Shared rows are DP + 8 bf16 apart (the
-// p and ds tiles RQ + 8), so fragment loads touch 32 distinct banks.  The
-// rest (a block per (window, head) over a run of images, the additive term
-// in registers, one partial of ds per run, the fixed-order reductions) is
-// the f32 core's.  Strides are in bf16 elements, multiples of 8 (16-byte
-// rows for cp.async).
-//
-// What bounds it: bytes, as in f32, halved: at Swin-T stage 0 and batch 112
-// the forward moves 4 x 67 MB of bf16 q, k, v and o (0.081 ms at 3.35
-// TB/s), the backward 7 x 67 MB (0.14 ms); its products (6.6 GFLOP forward,
-// on tiles padded from 49 to 64) are a few microseconds at the bf16 rate.
-
-namespace b16 {
-
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-template <int S>
-__device__ __forceinline__ uint32_t ld_col2(const bf16* p) {
-  const uint32_t lo = *reinterpret_cast<const uint16_t*>(p);
-  const uint32_t hi = *reinterpret_cast<const uint16_t*>(p + S);
-  return lo | (hi << 16);
-}
-
-struct FragA {
-  uint32_t r[4];
-};
-
-// The A operand at rows r0.., columns c0.. of a row-major shared tile.
-template <int S>
-__device__ __forceinline__ FragA load_a(const bf16* s, int r0, int c0, int g, int t) {
-  const bf16* p = s + (r0 + g) * S + c0 + 2 * t;
-  return FragA{{ld32(p), ld32(p + 8 * S), ld32(p + 8), ld32(p + 8 * S + 8)}};
-}
-
-// The A operand of a transposed tile, A[r][c] = s[c][r], rows r0..,
-// columns c0...
-template <int S>
-__device__ __forceinline__ FragA load_at(const bf16* s, int r0, int c0, int g, int t) {
-  const bf16* p = s + (c0 + 2 * t) * S + r0 + g;
-  return FragA{{ld_col2<S>(p), ld_col2<S>(p + 8), ld_col2<S>(p + 8 * S),
-                ld_col2<S>(p + 8 * S + 8)}};
-}
-
-// B of x y^T: element (k, n) is s[n0 + n][k0 + k].
-template <int S>
-__device__ __forceinline__ void load_b_nk(const bf16* s, int n0, int k0, int g, int t,
-                                          uint32_t& b0, uint32_t& b1) {
-  const bf16* p = s + (n0 + g) * S + k0 + 2 * t;
-  b0 = ld32(p);
-  b1 = ld32(p + 8);
-}
-
-// B of x y: element (k, n) is s[k0 + k][n0 + n].
-template <int S>
-__device__ __forceinline__ void load_b_kn(const bf16* s, int k0, int n0, int g, int t,
-                                          uint32_t& b0, uint32_t& b1) {
-  const bf16* p = s + (k0 + 2 * t) * S + n0 + g;
-  b0 = ld_col2<S>(p);
-  b1 = ld_col2<S>(p + 8 * S);
-}
-
-// Accumulator n-tiles 2 kk and 2 kk + 1 as a bf16 A operand.
-template <int N>
-__device__ __forceinline__ FragA acc_as_a(const float (&c)[N][4], int kk) {
-  const float* x = c[2 * kk];
-  const float* y = c[2 * kk + 1];
-  return FragA{{pack(x[0], x[1]), pack(x[2], x[3]), pack(y[0], y[1]), pack(y[2], y[3])}};
-}
-
-// acc = sum over K k-steps of load_a(k) times load_b(k, n), for N n-tiles.
-template <int K, int N, typename LoadA, typename LoadB>
-__device__ __forceinline__ void product(float (&acc)[N][4], LoadA load_a, LoadB load_b) {
-  zero(acc);
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const FragA a = load_a(k);
-#pragma unroll
-    for (int n = 0; n < N; ++n) {
-      uint32_t b0, b1;
-      load_b(k, n, b0, b1);
-      mma(acc[n], a.r, b0, b1);
-    }
-  }
-}
-
-// Start copying a window's (T, D) bf16 rows, `st` elements apart, into an
-// R x (DP + 8) shared tile; zeros past row T and column D (D is a multiple
-// of 8, so an 8-element group is all in or all out).
-template <int DP, int R, int kThreads>
-__device__ __forceinline__ void load_tile(bf16* s, const bf16* __restrict__ g, long long st,
-                                          int T, int D) {
-  constexpr int SD = DP + 8, C8 = DP / 8;
-  for (int e = threadIdx.x; e < R * C8; e += kThreads) {
-    const int r = e / C8, c = (e % C8) * 8;
-    const bool ok = r < T && c < D;
-    copy16(reinterpret_cast<float*>(s + r * SD + c),
-           reinterpret_cast<const float*>(ok ? g + r * st + c : g), ok);
-  }
-}
-
-// p = softmax(s scale + a) over the columns < T, normalised, in f32; 0 in
-// other columns and in rows past T.
-template <int NC>
-__device__ __forceinline__ void probs(float (&s)[NC][4], const float (&a)[NC][4], int T,
-                                      float scale, int row, int t) {
-  const float zeros[NC][4] = {};
-  float inv[2];
-  softmax_rows<NC>(s, zeros, a, T, scale, row, t, inv);
-#pragma unroll
-  for (int j = 0; j < NC; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] *= inv[e >> 1];
-}
-
-// Rows row, row + 8 (< T) and columns 8 n + 2t, + 1 (< D) of acc times mul,
-// rounded to bf16, into a window whose rows are `st` elements apart.
-template <int ND>
-__device__ __forceinline__ void store_rows(bf16* __restrict__ out, long long st,
-                                           const float (&acc)[ND][4], float mul, int row, int T,
-                                           int D, int t) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (row + 8 * h >= T) continue;
-    bf16* p = out + (row + 8 * h) * st + 2 * t;
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-      if (8 * n < D)
-        *reinterpret_cast<uint32_t*>(p + 8 * n) =
-            pack(acc[n][2 * h] * mul, acc[n][2 * h + 1] * mul);
-  }
-}
-
-// NC is even here: a window takes kWarpsOf<NC> = NC / 2 warps, 16 q rows
-// each, and as many kv rows (8 NC).
-
-// As the f32 next_image, on bf16 tiles.
-template <int kStages, typename Fetch>
-__device__ __forceinline__ void next_image(int b, int b0, int b1, bf16* tiles, int buf,
-                                           Fetch fetch) {
-  const int ahead = b + kStages - 1;
-  if (ahead < b1) fetch(ahead, tiles + ((ahead - b0) % kStages) * buf);
-  copy_commit();
-  copy_wait<kStages - 1>();
-  __syncthreads();  // this image's tiles are in, for every thread
-}
-
-template <int NC, int DP>
-constexpr size_t fwd_smem() {
-  constexpr int R = 8 * NC;
-  return (size_t)kFwdStages * 3 * R * (DP + 8) * sizeof(bf16);
-}
-
-template <int NC, int DP>
-constexpr size_t bwd_smem() {
-  constexpr int R = 8 * NC;
-  return ((size_t)kBwdStages * 4 * R * (DP + 8) + 2 * R * (R + 8)) * sizeof(bf16);
-}
-
-// grid (nW, H, runs of `chunk` images), 32 W threads; as the f32 fwd_kernel
-template <int NC, int DP>
-__global__ void __launch_bounds__(32 * kWarpsOf<NC>, 4)
-    fwd_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const float* __restrict__ add,
-                    const float* __restrict__ mask, bf16* __restrict__ o, Geo geo, Layout in,
-                    Layout out, int chunk) {
-  constexpr int kThreads = 32 * kWarpsOf<NC>;
-  constexpr int R = 8 * NC, S = DP + 8, NK = DP / 16, ND = DP / 8;
-  constexpr int kBuf = 3 * R * S;
-  extern __shared__ float4 smem4[];
-  bf16* tiles = reinterpret_cast<bf16*>(smem4);
-
-  const int w = blockIdx.x, h = blockIdx.y;
-  const int b0 = blockIdx.z * chunk, b1 = min(b0 + chunk, geo.B);
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int r0 = (threadIdx.x / 32) * 16;
-  const long long at_in = w * in.w + h * in.h, at_out = w * out.w + h * out.h;
-  float a[NC][4];
-  load_add<NC>(a, add, mask, geo, h, w, r0, g, t);
-
-  auto fetch = [&](int b, bf16* buf) {
-    const long long at = at_in + b * in.b;
-    load_tile<DP, R, kThreads>(buf, q + at, in.t, geo.T, geo.D);
-    load_tile<DP, R, kThreads>(buf + R * S, k + at, in.t, geo.T, geo.D);
-    load_tile<DP, R, kThreads>(buf + 2 * R * S, v + at, in.t, geo.T, geo.D);
-  };
-  for (int i = 0; i < kFwdStages - 1; ++i) {
-    if (b0 + i < b1) fetch(b0 + i, tiles + i * kBuf);
-    copy_commit();
-  }
-  for (int b = b0; b < b1; ++b) {
-    next_image<kFwdStages>(b, b0, b1, tiles, kBuf, fetch);
-    const bf16* cur = tiles + ((b - b0) % kFwdStages) * kBuf;
-    const bf16 *sQ = cur, *sK = cur + R * S, *sV = sK + R * S;
-
-    float s[NC][4];
-    product<NK, NC>(s, [&](int ks) { return load_a<S>(sQ, r0, 16 * ks, g, t); },
-                    [&](int ks, int j, uint32_t& x, uint32_t& y) {
-                      load_b_nk<S>(sK, 8 * j, 16 * ks, g, t, x, y);
-                    });
-    probs<NC>(s, a, geo.T, geo.scale, r0 + g, t);
-
-    // O = P V, P rounded to bf16 from the score registers
-    float acc[ND][4];
-    product<NC / 2, ND>(acc, [&](int kk) { return acc_as_a(s, kk); },
-                        [&](int kk, int n, uint32_t& x, uint32_t& y) {
-                          load_b_kn<S>(sV, 16 * kk, 8 * n, g, t, x, y);
-                        });
-    store_rows<ND>(o + at_out + b * out.b, out.t, acc, 1.0f, r0 + g, geo.T, geo.D, t);
-    __syncthreads();  // every read of this buffer is done
-  }
-}
-
-// grid (nW, H, runs of `chunk` images), 32 W threads; part: (runs, H, nW,
-// T, T), the run's sum of the f32 ds over its images; as the f32 bwd_kernel
-template <int NC, int DP>
-__global__ void __launch_bounds__(32 * kWarpsOf<NC>, 3)
-    bwd_kernel_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const float* __restrict__ add,
-                    const float* __restrict__ mask, const bf16* __restrict__ dout,
-                    bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
-                    float* __restrict__ part, Geo geo, Layout in, Layout dol, Layout gl,
-                    int chunk) {
-  constexpr int kThreads = 32 * kWarpsOf<NC>;
-  constexpr int R = 8 * NC, S = DP + 8, NK = DP / 16, ND = DP / 8;
-  constexpr int SP = R + 8;  // row stride of p and ds
-  constexpr int kBuf = 4 * R * S;
-  extern __shared__ float4 smem4[];
-  bf16* tiles = reinterpret_cast<bf16*>(smem4);  // q, dO, k, v
-  bf16* sP = tiles + kBwdStages * kBuf;          // R x SP: p[q row][kv column], bf16
-  bf16* sdS = sP + R * SP;
-
-  const int w = blockIdx.x, h = blockIdx.y;
-  const int b0 = blockIdx.z * chunk, b1 = min(b0 + chunk, geo.B);
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int r0 = (threadIdx.x / 32) * 16;  // the warp's first q row, then kv row
-  const long long at_in = w * in.w + h * in.h, at_do = w * dol.w + h * dol.h;
-  const long long at_g = w * gl.w + h * gl.h;
-  float a[NC][4], dsum[NC][4];
-  load_add<NC>(a, add, mask, geo, h, w, r0, g, t);
-  zero(dsum);
-
-  auto fetch = [&](int b, bf16* buf) {
-    const long long at = at_in + b * in.b;
-    load_tile<DP, R, kThreads>(buf, q + at, in.t, geo.T, geo.D);
-    load_tile<DP, R, kThreads>(buf + R * S, dout + at_do + b * dol.b, dol.t, geo.T, geo.D);
-    load_tile<DP, R, kThreads>(buf + 2 * R * S, k + at, in.t, geo.T, geo.D);
-    load_tile<DP, R, kThreads>(buf + 3 * R * S, v + at, in.t, geo.T, geo.D);
-  };
-  for (int i = 0; i < kBwdStages - 1; ++i) {
-    if (b0 + i < b1) fetch(b0 + i, tiles + i * kBuf);
-    copy_commit();
-  }
-  for (int b = b0; b < b1; ++b) {
-    next_image<kBwdStages>(b, b0, b1, tiles, kBuf, fetch);
-    const bf16* cur = tiles + ((b - b0) % kBwdStages) * kBuf;
-    const bf16 *sQ = cur, *sdO = cur + R * S, *sK = cur + 2 * R * S, *sV = sK + R * S;
-    const long long gat = at_g + b * gl.b;
-
-    // p = softmax(q k^T * scale + add) in f32, rows and columns past T zero
-    float p[NC][4];
-    product<NK, NC>(p, [&](int ks) { return load_a<S>(sQ, r0, 16 * ks, g, t); },
-                    [&](int ks, int j, uint32_t& x, uint32_t& y) {
-                      load_b_nk<S>(sK, 8 * j, 16 * ks, g, t, x, y);
-                    });
-    probs<NC>(p, a, geo.T, geo.scale, r0 + g, t);
-
-    // ds = p (dp - rowsum(dp p)), dp = dO v^T, in f32
-    float ds[NC][4];
-    product<NK, NC>(ds, [&](int ks) { return load_a<S>(sdO, r0, 16 * ks, g, t); },
-                    [&](int ks, int j, uint32_t& x, uint32_t& y) {
-                      load_b_nk<S>(sV, 8 * j, 16 * ks, g, t, x, y);
-                    });
-    float dot[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int j = 0; j < NC; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dot[e >> 1] = fmaf(ds[j][e], p[j][e], dot[e >> 1]);
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) dot[hh] = quad_sum(dot[hh]);
-#pragma unroll
-    for (int j = 0; j < NC; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        ds[j][e] = p[j][e] * (ds[j][e] - dot[e >> 1]);  // 0 outside the T x T square
-        dsum[j][e] += ds[j][e];
-      }
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = r0 + g + 8 * hh, c = 8 * j + 2 * t;
-        *reinterpret_cast<uint32_t*>(sP + r * SP + c) = pack(p[j][2 * hh], p[j][2 * hh + 1]);
-        *reinterpret_cast<uint32_t*>(sdS + r * SP + c) = pack(ds[j][2 * hh], ds[j][2 * hh + 1]);
-      }
-    }
-
-    // dq = (ds k) scale, ds rounded to bf16 from registers
-    float acc[ND][4];
-    product<NC / 2, ND>(acc, [&](int kk) { return acc_as_a(ds, kk); },
-                        [&](int kk, int n, uint32_t& x, uint32_t& y) {
-                          load_b_kn<S>(sK, 16 * kk, 8 * n, g, t, x, y);
-                        });
-    store_rows<ND>(dq + gat, gl.t, acc, geo.scale, r0 + g, geo.T, geo.D, t);
-    __syncthreads();  // p and ds of every q row are in shared memory
-
-    // this warp's kv rows: dv = p^T dO, dk = (ds^T q) scale
-    product<NC / 2, ND>(acc, [&](int kk) { return load_at<SP>(sP, r0, 16 * kk, g, t); },
-                        [&](int kk, int n, uint32_t& x, uint32_t& y) {
-                          load_b_kn<S>(sdO, 16 * kk, 8 * n, g, t, x, y);
-                        });
-    store_rows<ND>(dv + gat, gl.t, acc, 1.0f, r0 + g, geo.T, geo.D, t);
-    product<NC / 2, ND>(acc, [&](int kk) { return load_at<SP>(sdS, r0, 16 * kk, g, t); },
-                        [&](int kk, int n, uint32_t& x, uint32_t& y) {
-                          load_b_kn<S>(sQ, 16 * kk, 8 * n, g, t, x, y);
-                        });
-    store_rows<ND>(dk + gat, gl.t, acc, geo.scale, r0 + g, geo.T, geo.D, t);
-    __syncthreads();  // every read of this buffer, p and ds is done
-  }
-
-  const long long TT = (long long)geo.T * geo.T;
-  float* dst = part + (((long long)blockIdx.z * geo.H + h) * geo.nW + w) * TT;
-#pragma unroll
-  for (int j = 0; j < NC; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = r0 + g + 8 * (e >> 1), c = 8 * j + 2 * t + (e & 1);
-      if (r < geo.T && c < geo.T) dst[r * geo.T + c] = dsum[j][e];
-    }
-}
-
-// f(nc, dp) with the instance's n-tiles (2, 4 or 8: the kv rows of P V in
-// k-steps of 16) and padded head dim (16, 32 or 64).
-template <typename F>
-int dispatch(int T, int D, F f) {
-  auto by_dp = [&](auto nc) -> int {
-    if (D <= 16) return f(nc, std::integral_constant<int, 16>{});
-    if (D <= 32) return f(nc, std::integral_constant<int, 32>{});
-    return f(nc, std::integral_constant<int, 64>{});
-  };
-  if (T <= 16) return by_dp(std::integral_constant<int, 2>{});
-  if (T <= 32) return by_dp(std::integral_constant<int, 4>{});
-  return by_dp(std::integral_constant<int, 8>{});
-}
-
-template <int NC, int DP>
-int fwd(const bf16* q, const bf16* k, const bf16* v, const float* add, const float* mask,
-        bf16* o, const Geo& g, const Layout& in, const Layout& out, int chunk, int runs,
-        cudaStream_t st) {
-  constexpr size_t smem = fwd_smem<NC, DP>();
-  cudaError_t err = allow_smem(fwd_kernel_bf16<NC, DP>, smem);
-  if (err != cudaSuccess) return err;
-  fwd_kernel_bf16<NC, DP><<<dim3(g.nW, g.H, runs), 32 * kWarpsOf<NC>, smem, st>>>(
-      q, k, v, add, mask, o, g, in, out, chunk);
-  return cudaGetLastError();
-}
-
-template <int NC, int DP>
-int bwd(const bf16* q, const bf16* k, const bf16* v, const float* add, const float* mask,
-        const bf16* dout, bf16* dq, bf16* dk, bf16* dv, float* part, const Geo& g,
-        const Layout& in, const Layout& dol, const Layout& gl, int chunk, int runs,
-        cudaStream_t st) {
-  constexpr size_t smem = bwd_smem<NC, DP>();
-  cudaError_t err = allow_smem(bwd_kernel_bf16<NC, DP>, smem);
-  if (err != cudaSuccess) return err;
-  bwd_kernel_bf16<NC, DP><<<dim3(g.nW, g.H, runs), 32 * kWarpsOf<NC>, smem, st>>>(
-      q, k, v, add, mask, dout, dq, dk, dv, part, g, in, dol, gl, chunk);
-  return cudaGetLastError();
-}
-
-// bf16 rows move 16 bytes at a time: every stride a multiple of 8 elements.
-bool bad_layout(const Layout& l) { return l.b % 8 || l.w % 8 || l.h % 8 || l.t % 8; }
-
-}  // namespace b16
-
-// dbias (packed = 0) or dadd (packed = 1) from the partials, in a fixed order.
-int reduce_grad_add(const float* part, float* grad_add, int packed, int runs, int H, int nW,
-                    int P, int T, cudaStream_t st) {
-  if (packed) {
-    const long long total = (long long)H * (nW / P) * (P * T) * (P * T);
-    const long long blocks = (total + 255) / 256;
-    const int grid = (int)(blocks < 8192 ? blocks : 8192);
-    reduce_add_kernel<<<grid, 256, 0, st>>>(part, grad_add, runs, H, nW / P, P, T);
-  } else {
-    const int TT = T * T;
-    reduce_bias_kernel<<<dim3((TT + 31) / 32, H), dim3(32, kSlices), 0, st>>>(part, grad_add,
-                                                                            runs, H, nW, TT);
-  }
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // Forward.  q, k, v and o are read and written through strides (host
@@ -1147,55 +665,6 @@ extern "C" int swin_attention_bwd(const float* q, const float* k, const float* v
   int err = dispatch(T, D, [&](auto nc, auto dp) {
     return bwd<decltype(nc)::value, decltype(dp)::value>(q, k, v, add, mask, dout, dq, dk, dv,
                                                          part, g, in, dol, gl, chunk, runs, st);
-  });
-  if (err != cudaSuccess) return err;
-  return reduce_grad_add(part, grad_add, packed, runs, H, nW, P, T, st);
-}
-
-// The bf16 form of the two entries above: q, k, v, o, dout, dq, dk, dv
-// bf16, strides in bf16 elements (multiples of 8), every operand 16-byte
-// aligned; add, mask, part and grad_add f32 as above.  Returns a
-// cudaError_t.
-extern "C" int swin_attention_fwd_bf16(const void* q, const void* k, const void* v,
-                                       const float* add, const float* mask, void* o,
-                                       const long long* strides, int B, int H, int nW, int T,
-                                       int D, int P, long long add_h, long long add_blk, int lda,
-                                       int chunk, int runs, float scale, void* stream) {
-  using b16::bf16;
-  const Geo g = make_geo(B, H, nW, T, D, P, add_h, add_blk, lda, scale);
-  const Layout in = layout_at(strides, 0), out = layout_at(strides, 1);
-  if (bad_geo(g, chunk, runs) || b16::bad_layout(in) || b16::bad_layout(out) ||
-      misaligned(q) || misaligned(k) || misaligned(v) || misaligned(o))
-    return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return b16::dispatch(T, D, [&](auto nc, auto dp) {
-    return b16::fwd<decltype(nc)::value, decltype(dp)::value>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        add, mask, static_cast<bf16*>(o), g, in, out, chunk, runs, st);
-  });
-}
-
-extern "C" int swin_attention_bwd_bf16(const void* q, const void* k, const void* v,
-                                       const float* add, const float* mask, const void* dout,
-                                       void* dq, void* dk, void* dv, float* part,
-                                       float* grad_add, int packed, const long long* strides,
-                                       int B, int H, int nW, int T, int D, int P,
-                                       long long add_h, long long add_blk, int lda, int chunk,
-                                       int runs, float scale, void* stream) {
-  using b16::bf16;
-  const Geo g = make_geo(B, H, nW, T, D, P, add_h, add_blk, lda, scale);
-  const Layout in = layout_at(strides, 0), dol = layout_at(strides, 1);
-  const Layout gl = layout_at(strides, 2);
-  if (bad_geo(g, chunk, runs) || b16::bad_layout(in) || b16::bad_layout(dol) ||
-      b16::bad_layout(gl) || misaligned(q) || misaligned(k) || misaligned(v) ||
-      misaligned(dout) || misaligned(dq) || misaligned(dk) || misaligned(dv))
-    return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err = b16::dispatch(T, D, [&](auto nc, auto dp) {
-    return b16::bwd<decltype(nc)::value, decltype(dp)::value>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        add, mask, static_cast<const bf16*>(dout), static_cast<bf16*>(dq),
-        static_cast<bf16*>(dk), static_cast<bf16*>(dv), part, g, in, dol, gl, chunk, runs, st);
   });
   if (err != cudaSuccess) return err;
   return reduce_grad_add(part, grad_add, packed, runs, H, nW, P, T, st);

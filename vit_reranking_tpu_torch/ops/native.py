@@ -3,8 +3,9 @@
 Each source is compiled by ``nvcc`` on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds) and loaded
 with ``ctypes``.  Libraries go to ``build/kernels/`` at the repository root,
-named by a hash of the source and the flags, so an edit rebuilds and an
-unchanged source is reused.  Nothing is built when the module is imported.
+named by a hash of the source, the ``csrc/`` headers it includes and the
+flags, so an edit of either rebuilds and an unchanged source is reused.
+Nothing is built when the module is imported.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -22,6 +24,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = (
     "sinkhorn_score", "filter_threshold", "kv_attention", "kv_attention_bf16", "swin_attention",
+    "swin_attention_bf16",
 )
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
@@ -29,6 +32,7 @@ NVCC_FLAGS = (
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_launchers: Dict[tuple, ctypes.CFUNCTYPE] = {}
 
 
 def nvcc_path() -> str:
@@ -47,6 +51,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in re.findall(rb'#include "([^"]+)"', src):
+        src += (CSRC / header.decode()).read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
@@ -103,10 +109,13 @@ def library(name: str) -> ctypes.CDLL:
 def launcher(name: str, symbol: str, argtypes) -> ctypes.CFUNCTYPE:
     """``symbol`` of the library for ``csrc/<name>.cu`` with its argument
     types set (``c_void_p`` for every pointer and the stream); it returns a
-    ``cudaError_t``."""
-    fn = getattr(library(name), symbol)
-    fn.restype = ctypes.c_int
-    fn.argtypes = argtypes
+    ``cudaError_t``.  Looked up once a (library, symbol)."""
+    fn = _launchers.get((name, symbol))
+    if fn is None:
+        fn = getattr(library(name), symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _launchers[(name, symbol)] = fn
     return fn
 
 

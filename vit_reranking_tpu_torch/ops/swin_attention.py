@@ -25,20 +25,26 @@ softmax, dp and ds in f32, p (normalised) and ds rounded to bf16 before the
 products they feed, each product's f32 sum scaled and rounded to bf16 once,
 and the bias or additive-term gradient summed from the f32 ds.
 
-On CUDA tensors every entry launches the same window core in
-``csrc/swin_attention.cu`` (its f32 or its bf16 form), which solves each (T, T) window on its own: the
-packed contract's products across windows are exactly zero after softmax
-(-1e9 off the diagonal blocks), so the core reads only add's diagonal
-blocks and writes zeros to the rest of its gradient.  The core reads and
-writes its operands through strides, so the qkv entry hands it the
-projection in place and gets back one (Bw, T, 3C) gradient, with no copy of
-q, k, v, o or their gradients.  On CPU tensors each function is its plain
-version, differentiated by autograd.
+On CUDA tensors every entry launches the same window core, in f32
+``csrc/swin_attention.cu`` and in bf16 ``csrc/swin_attention_bf16.cu``,
+which solves each (T, T) window on its own: the packed contract's products
+across windows are exactly zero after softmax (-1e9 off the diagonal
+blocks), so the core reads only add's diagonal blocks and writes zeros to
+the rest of its gradient.  The core reads and writes its operands through
+strides, so the qkv entry hands it the projection in place and gets back one
+(Bw, T, 3C) gradient, with no copy of q, k, v, o or their gradients.  The
+qkv entry launches the core with the batched geometry (bias and mask) for
+either contract: the packed additive term's diagonal blocks are bias[h] +
+mask[w] to the bit, so it is the same function, and no (H, nblk, P T, P T)
+term is built on the card.  On CPU tensors each function is its plain
+version, differentiated by autograd (the qkv entry's packed contract on
+:func:`_packed_add_term`, as the JAX package computes it).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 from typing import Optional
 
@@ -62,8 +68,9 @@ SWIN_KERNEL_PACKED = os.environ.get("SWIN_KERNEL_VARIANT", "packed") != "batched
 MAX_TOKENS = 64
 MAX_HEAD_DIM = 64
 
-# blocks a launch aims for: each block owns one (window, head) and a run of
-# images, so that small stages still fill the card's 132 SMs
+# blocks a launch of the f32 core aims for: each block owns one (window,
+# head) and a run of images, so that small stages still fill the card's 132
+# SMs (the bf16 core's persistent blocks walk such units: _persistent_runs)
 TARGET_BLOCKS = 1056
 
 _FWD_ARGS = [*[ctypes.c_void_p] * 7, *[ctypes.c_int] * 6, ctypes.c_longlong,
@@ -217,10 +224,41 @@ def _ready(t: torch.Tensor) -> torch.Tensor:
 
 
 def _runs(B: int, H: int, nW: int):
-    """(images a block takes, blocks along the images) for a launch."""
+    """(images a block takes, blocks along the images) for a launch of the
+    f32 core."""
     n = min(B, max(1, -(-TARGET_BLOCKS // (H * nW))))
     chunk = -(-B // n)
     return chunk, -(-B // chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def _persistent_runs(B: int, H: int, nW: int, slots: int):
+    """(images a unit takes, runs of images) for the bf16 core, whose
+    ``slots`` persistent blocks take the H nW runs units round robin: of the
+    ways to cut B images into runs, the one that leaves the least work on
+    the busiest block, counting a unit's own cost (its additive term read,
+    its partial sum of ds written and reduced) as one image more, and of
+    those the longest runs."""
+    best = None
+    for runs in range(1, B + 1):
+        chunk = -(-B // runs)
+        if -(-B // chunk) != runs:
+            continue  # the same chunk as fewer runs
+        key = (-(-(H * nW * runs) // slots) * (chunk + 1), -chunk)
+        if best is None or key < best[0]:
+            best = (key, chunk, runs)
+    return best[1], best[2]
+
+
+def _bf16_slots(D: int, backward: bool) -> int:
+    """The blocks the bf16 core's forward or backward kernel for head dim D
+    runs at once on the current card (the library works it out once a
+    device and thread, and keeps it)."""
+    fn = native.launcher("swin_attention_bf16", "swin_attention_bf16_slots",
+                         [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    out = ctypes.c_int(0)
+    native.check(fn(D, int(backward), ctypes.addressof(out)), "swin_attention_bf16_slots")
+    return out.value
 
 
 def _heads_slowest(t: torch.Tensor, H: int) -> torch.Tensor:
@@ -234,8 +272,7 @@ def _qkv_views(qkv: torch.Tensor, nW: int, H: int):
     """q, k, v of a (B nW, T, 3 H D) projection as (B, nW, H, T, D) views
     of it, without a copy (the head dim stays contiguous)."""
     Bw, T, C3 = qkv.shape
-    x = qkv.view(Bw // nW, nW, T, 3, H, C3 // (3 * H))
-    return tuple(x[:, :, :, i].permute(0, 1, 3, 2, 4) for i in range(3))
+    return qkv.view(Bw // nW, nW, T, 3, H, C3 // (3 * H)).permute(3, 0, 1, 4, 2, 5).unbind(0)
 
 
 def _tokens_view(o: torch.Tensor, nW: int, H: int) -> torch.Tensor:
@@ -269,9 +306,12 @@ def _strides(*groups):
     return (ctypes.c_longlong * len(out))(*out)
 
 
-def _suffix(q: torch.Tensor) -> str:
-    """The C entries' name suffix for q's dtype."""
-    return "_bf16" if q.dtype == torch.bfloat16 else ""
+def _entry(q: torch.Tensor, direction: str):
+    """(library, C entry) of the core for q's dtype: ``csrc/swin_attention.cu``
+    in f32, ``csrc/swin_attention_bf16.cu`` in bf16."""
+    if q.dtype == torch.bfloat16:
+        return "swin_attention_bf16", f"swin_attention_{direction}_bf16"
+    return "swin_attention", f"swin_attention_{direction}"
 
 
 def _count(fn, direction: str, dtype: torch.dtype) -> None:
@@ -292,35 +332,42 @@ class _Launch:
                 f"swin attention: T={T}, D={D}; the kernel takes 2 <= T <= {MAX_TOKENS} "
                 f"and D a multiple of 8 up to {MAX_HEAD_DIM}"
             )
-        self.chunk, self.runs = _runs(B, H, nW)
         self.dims = (B, H, nW, T, D, P, add_h, add_blk, lda)
         self.scale = float(scale)
 
+    def _runs(self, q, backward):
+        """(chunk, runs) of the images for a launch in q's dtype."""
+        B, H, nW, _, D = self.dims[:5]
+        if q.dtype == torch.bfloat16:
+            return _persistent_runs(B, H, nW, _bf16_slots(D, backward))
+        return _runs(B, H, nW)
+
     def forward(self, q, k, v, add, mask, o):
         """o = attention(q, k, v), all (B, nW, H, T, D) views."""
-        fn = native.launcher("swin_attention", "swin_attention_fwd" + _suffix(q), _FWD_ARGS)
+        lib, symbol = _entry(q, "fwd")
+        fn = native.launcher(lib, symbol, _FWD_ARGS)
         strides = _strides((q, k, v), (o,))
         stream = torch.cuda.current_stream(q.device).cuda_stream
         native.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), add.data_ptr(),
                         0 if mask is None else mask.data_ptr(), o.data_ptr(), strides,
-                        *self.dims, self.chunk, self.runs, self.scale, stream),
-                     "swin_attention_fwd")
+                        *self.dims, *self._runs(q, False), self.scale, stream), symbol)
 
     def backward(self, q, k, v, add, mask, do, dq, dk, dv, grad_add_shape, packed):
         """dq, dk, dv (views like q) from do; returns the gradient of the
         additive term, of ``grad_add_shape``."""
         B, H, nW, T = self.dims[:4]
-        part = torch.empty((self.runs, H, nW, T, T), dtype=torch.float32, device=q.device)
+        chunk, runs = self._runs(q, True)
+        part = torch.empty((runs, H, nW, T, T), dtype=torch.float32, device=q.device)
         grad_add = torch.empty(grad_add_shape, dtype=torch.float32, device=q.device)
-        fn = native.launcher("swin_attention", "swin_attention_bwd" + _suffix(q), _BWD_ARGS)
+        lib, symbol = _entry(q, "bwd")
+        fn = native.launcher(lib, symbol, _BWD_ARGS)
         strides = _strides((q, k, v), (do,), (dq, dk, dv))
         stream = torch.cuda.current_stream(q.device).cuda_stream
         native.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), add.data_ptr(),
                         0 if mask is None else mask.data_ptr(), do.data_ptr(), dq.data_ptr(),
                         dk.data_ptr(), dv.data_ptr(), part.data_ptr(), grad_add.data_ptr(),
-                        int(packed), strides, *self.dims, self.chunk, self.runs, self.scale,
-                        stream),
-                     "swin_attention_bwd")
+                        int(packed), strides, *self.dims, chunk, runs, self.scale, stream),
+                     symbol)
         return grad_add
 
 
@@ -413,39 +460,35 @@ class _PackedAttention(torch.autograd.Function):
 
 
 class _QkvAttention(torch.autograd.Function):
-    """K4a or K4b (``packed``) reading q, k, v from the (B nW, T, 3 H D)
-    projection in place and writing o as (B nW, T, H D); the backward
-    writes dq, dk, dv into one (B nW, T, 3 H D) gradient.  CUDA only."""
+    """The window core reading q, k, v from the (B nW, T, 3 H D) projection
+    in place and writing o as (B nW, T, H D), with the batched geometry
+    (bias (H, T, T), mask (nW, T, T) or None) whichever contract ``counted``
+    (the entry whose launch counters count it) names; the backward writes
+    dq, dk, dv into one (B nW, T, 3 H D) gradient and returns dbias.  CUDA
+    only."""
 
     @staticmethod
-    def forward(ctx, qkv, add, mask, scale, H, nW, P, packed):
+    def forward(ctx, qkv, bias, mask, scale, H, nW, counted):
         Bw, T, C3 = qkv.shape
         C = C3 // 3
-        if packed:
-            PT = P * T
-            launch = _Launch(Bw // nW, H, nW, T, C // H, P, (nW // P) * PT * PT, PT * PT, PT,
-                             scale)
-        else:
-            launch = _Launch(Bw // nW, H, nW, T, C // H, 1, T * T, 0, T, scale)
+        launch = _Launch(Bw // nW, H, nW, T, C // H, 1, T * T, 0, T, scale)
         o = torch.empty((Bw, T, C), dtype=qkv.dtype, device=qkv.device)
-        launch.forward(*_qkv_views(qkv, nW, H), add, mask, _tokens_view(o, nW, H))
-        _count(swin_window_attention_packed if packed else swin_window_attention, "fwd",
-               qkv.dtype)
-        ctx.launch, ctx.H, ctx.nW, ctx.packed = launch, H, nW, packed
-        ctx.save_for_backward(qkv, add, mask)
+        launch.forward(*_qkv_views(qkv, nW, H), bias, mask, _tokens_view(o, nW, H))
+        _count(counted, "fwd", qkv.dtype)
+        ctx.launch, ctx.H, ctx.nW, ctx.counted = launch, H, nW, counted
+        ctx.save_for_backward(qkv, bias, mask)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        qkv, add, mask = ctx.saved_tensors
+        qkv, bias, mask = ctx.saved_tensors
         H, nW = ctx.H, ctx.nW
         do_view = _tokens_view(_ready(do), nW, H)
         dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
-        grad_add = ctx.launch.backward(*_qkv_views(qkv, nW, H), add, mask, do_view,
-                                       *_qkv_views(dqkv, nW, H), add.shape, ctx.packed)
-        _count(swin_window_attention_packed if ctx.packed else swin_window_attention, "bwd",
-               qkv.dtype)
-        return dqkv, grad_add, None, None, None, None, None, None
+        dbias = ctx.launch.backward(*_qkv_views(qkv, nW, H), bias, mask, do_view,
+                                    *_qkv_views(dqkv, nW, H), bias.shape, False)
+        _count(ctx.counted, "bwd", qkv.dtype)
+        return dqkv, dbias, None, None, None, None, None
 
 
 def _refuse(device: torch.device, what: str) -> None:
@@ -596,12 +639,13 @@ def swin_attention_qkv(qkv: torch.Tensor, bias: torch.Tensor, mask: Optional[tor
     :func:`swin_attention` returns None (the caller materialises).
     Differentiable in qkv and bias.
 
-    On CUDA tensors the kernel (K4a or K4b, as ``SWIN_KERNEL_PACKED``
-    picks; the same launch counters) reads q, k and v in place and writes
-    the output, and in the backward one (Bw, T, 3 C) gradient of qkv, with
-    no copy of either (float32 or bfloat16, every row 16-byte aligned, else
-    it raises).
-    On CPU tensors it is :func:`swin_attention_qkv_plain`."""
+    On CUDA tensors the kernel reads q, k and v in place and writes the
+    output, and in the backward one (Bw, T, 3 C) gradient of qkv and dbias,
+    with no copy of either (float32 or bfloat16, every row 16-byte aligned,
+    else it raises).  It runs with bias and mask for either contract (the
+    packed contract's function, without its (H, nblk, P T, P T) additive
+    term), counted as K4a's or K4b's launches as ``SWIN_KERNEL_PACKED``
+    picks.  On CPU tensors it is :func:`swin_attention_qkv_plain`."""
     Bw, T, C3 = qkv.shape
     H = num_heads
     if C3 % (3 * H):
@@ -617,10 +661,9 @@ def swin_attention_qkv(qkv: torch.Tensor, bias: torch.Tensor, mask: Optional[tor
     if qkv.dtype not in _DTYPES:
         raise ValueError(
             f"swin_attention_qkv: qkv must be float32 or bfloat16, got {qkv.dtype}")
-    if SWIN_KERNEL_PACKED:
-        P = _pick_pack_packed(nW, T)
-        add = _packed_add_term(bias, mask, P, nW // P).contiguous()
-        return _QkvAttention.apply(qkv, add, None, float(scale), H, nW, P, True)
+    # the counters name the TPU kernel that the setting runs in the JAX
+    # package, whose function this launch computes
+    counted = swin_window_attention_packed if SWIN_KERNEL_PACKED else swin_window_attention
     return _QkvAttention.apply(qkv, bias.float().contiguous(),
                                None if mask is None else mask.float().contiguous(),
-                               float(scale), H, nW, 1, False)
+                               float(scale), H, nW, counted)
