@@ -33,7 +33,15 @@ seeded generator:
   * the repo's SOP recipe (scripts/diml/test_diml_cvt_sop.sh: CvT-13,
     rollout, --ot_part 0.9) on the evaluation's synthetic set, carried by
     K1's group exit (one query's candidates frozen together), held against
-    the eager rerank of the same features.
+    the eager rerank of the same features;
+  * the repo's recipes on image trees, in a temporary directory: a
+    CUB200-layout tree of JPEGs and a stand-in of the reference's ImageNet
+    CvT-13 checkpoint (tests/manifests/cvt13.json's keys and shapes, seeded
+    values), trained on with scripts/baselines/cub_reprod.sh's flags for 2
+    epochs on the card's default bf16 (K3's bf16 form), resumed from
+    `latest`, and its `best` evaluated with scripts/diml/test_diml_cvt.sh's
+    flags, twice (K1, K2); then an SOP-layout tree evaluated from a Swin-T
+    stand-in with scripts/diml/test_diml_swin.sh's flags (K1).
 
 For each path it checks that its kernels carried it (launch counts set to 0
 just before and read just after), and it checks the models' forward or one
@@ -1855,6 +1863,230 @@ def phase_vit_reference(torch):
         raise AssertionError(f"card and CPU DeiT-S forward disagree beyond {FWD_TOL}: {bad}")
 
 
+def stand_ins():
+    """tests/stand_ins.py, which writes the image trees and the stand-ins
+    of the reference's checkpoints (it imports nothing of JAX)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "stand_ins.py")
+    spec = importlib.util.spec_from_file_location("stand_ins", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def loader_rate(loader, passes):
+    """The loader alone (JPEG decode and transform in its threads, batches
+    stacked; no model) over ``passes`` passes of its index batches in one
+    stream, as an epoch of that many batches runs (the training sampler
+    draws anew each pass; at most PREFETCH + 1 batches in flight): seconds
+    to the first batch, batches a second over the whole window, host
+    seconds a batch after the first, and the batch count."""
+    from vit_reranking_tpu_torch.data.loader import DataLoader
+
+    batches = [b for _ in range(passes) for b in loader._index_batches()]
+    stream = DataLoader(loader.dataset, batch_sampler=batches,
+                        num_workers=loader.num_workers)
+    t0 = time.perf_counter()
+    it = iter(stream)
+    next(it)
+    first = time.perf_counter() - t0
+    n = 1 + sum(1 for _ in it)
+    wall = time.perf_counter() - t0
+    return first, n / wall, (wall - first) / (n - 1), n
+
+
+# scripts/baselines/cub_reprod.sh for 2 epochs (the pretrained checkpoint and
+# --source_path are added where the phase writes them)
+RECIPE_TRAIN_ARGS = [
+    "--dataset", "cub200", "--kernels", "6", "--n_epochs", "2",
+    "--group", "CUB_Margin_b12_Distance_cvt", "--seed", "0", "--bs", "112",
+    "--samples_per_class", "2", "--loss", "margin", "--batch_mining", "distance",
+    "--arch", "cvt_13_normalize", "--embed_dim", "128", "--evalevery", "10",
+    "--max_patience", "5", "--device", "cuda",
+]
+# scripts/diml/test_diml_cvt.sh (--resume_path added by the phase)
+RECIPE_EVAL_ARGS = [
+    "--dataset", "cub200", "--seed", "0", "--bs", "16", "--arch", "cvt_13_normalize",
+    "--embed_dim", "128", "--use_cls_token", "--temperature", "0.1", "--use_ot",
+    "--use_inverse", "--grid_size", "7", "--ot_part", "1.0", "--use_rollout",
+    "--device", "cuda",
+]
+# scripts/diml/test_diml_swin.sh, from the pretrained checkpoint
+SWIN_RECIPE_ARGS = [
+    "--dataset", "online_products", "--seed", "0", "--bs", "16", "--arch", "swin_normalize",
+    "--embed_dim", "128", "--use_cls_token", "--use_ot", "--grid_size", "7",
+    "--device", "cuda",
+]
+
+
+def phase_recipe(torch):
+    """The CUB recipe round trip on a written tree (120 classes of 4 JPEGs,
+    sides 240-420 px: 60 training and 60 test classes) from a stand-in of
+    the ImageNet CvT-13 checkpoint: the loader alone (24 training and 30
+    evaluation batches, each in one stream), then train_baseline for 2
+    epochs on the card's defaults (bf16, K3's bf16 launches counted; the
+    trunk before the first step must be the converted checkpoint, bit for
+    bit), `best` loaded into a fresh model and held against the weights
+    the trained model had at the evaluation that made it best, a resume
+    from `latest` for one more epoch, and test_diml_cvt from `best` twice
+    (K1 and K2 counted; the two runs' metrics identical)."""
+    from vit_reranking_tpu_torch import models
+    from vit_reranking_tpu_torch.cli import test_diml, train_baseline
+    from vit_reranking_tpu_torch.core import convert
+    from vit_reranking_tpu_torch.core.checkpoint import load_checkpoint
+    from vit_reranking_tpu_torch.core.config import from_args
+    from vit_reranking_tpu_torch.data.loader import build_dataset, build_eval_loaders
+    from vit_reranking_tpu_torch.ops.attention import kv_resident_attention
+    from vit_reranking_tpu_torch.ops.rerank import sinkhorn_scores
+    from vit_reranking_tpu_torch.ops.rollout import filter_threshold
+
+    si = stand_ins()
+    with scratch_cwd() as work:
+        t0 = time.perf_counter()
+        source = os.path.join(work, "data")
+        si.write_class_tree(os.path.join(source, "cub200"), n_classes=120, per_class=4,
+                            seed=0, sides=(240, 420), exts=(".jpg",))
+        sd = si.manifest_state_dict("cvt13")
+        ckpt = os.path.join(work, "CvT-13-224x224-IN-1k.pth")
+        torch.save(sd, ckpt)
+        say(f"[recipe] wrote 480 JPEGs and a {len(sd)}-key CvT-13 checkpoint stand-in in "
+            f"{time.perf_counter() - t0:.3f}s")
+        src = ["--source_path", source]
+        train_args = RECIPE_TRAIN_ARGS + src + ["--pretrained_ckpt", ckpt,
+                                                "--save_path", os.path.join(work, "runs")]
+
+        loaders, _ = build_dataset(from_args(train_args))
+        rates = {
+            "training": loader_rate(loaders["training"], passes=12),
+            "evaluation": loader_rate(
+                build_eval_loaders(from_args(RECIPE_EVAL_ARGS + src))["testing"], passes=2),
+        }
+        for name, (first, per_s, steady, n), what in zip(
+                rates, rates.values(), ("112, TrainTransform base", "16, EvalTransform")):
+            say(f"[recipe] loader alone, {name} (JPEG decode + transform, 6 threads, no "
+                f"model): {n} batches of {what} in one stream: first batch {first:.4f}s, "
+                f"{per_s:.4f} batches/s over the window, {steady:.4f}s a batch after the first")
+        tr_s, te_s = rates["training"][2], rates["evaluation"][2]
+
+        converted = convert.convert_for_arch("cvt_13_normalize", sd)
+        first = []
+        evaluated = {}  # step count -> the weights the model held at that evaluation
+        states = []
+        real_step, real_eval = train_baseline.run_train_step, train_baseline.evaluate_plain
+
+        def checked_step(state, *args):
+            if not first:
+                have = state.model.state_dict()
+                first.append(all(torch.equal(have[k].cpu(), v) for k, v in converted.items()))
+                states.append(state)
+            return real_step(state, *args)
+
+        def snapshot_eval(model, *args):
+            evaluated[states[0].step] = {k: v.detach().cpu().clone()
+                                         for k, v in model.state_dict().items()}
+            return real_eval(model, *args)
+
+        for c in COUNTERS:
+            setattr(kv_resident_attention, f"{c}_launches", 0)
+        t0 = time.perf_counter()
+        with switched([(train_baseline, "run_train_step", checked_step),
+                       (train_baseline, "evaluate_plain", snapshot_eval)]):
+            summary = train_baseline.main(train_args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {c: getattr(kv_resident_attention, f"{c}_launches") for c in COUNTERS}
+        steps = len(summary["step_loss"])
+        say(f"[recipe] trunk before the first step is the converted checkpoint, bitwise: "
+            f"{first == [True]} ({len(converted)} entries)")
+        report_train("recipe", summary, wall, "K3", launches,
+                     launches["fwd_bf16"] > steps and launches["bwd_bf16"] == steps
+                     and launches["fwd"] == launches["bwd"] == 0, steps=4)
+        if first != [True]:
+            raise AssertionError("recipe: the trunk was not the converted checkpoint")
+
+        run = summary["run_dir"]
+        best = load_checkpoint(os.path.join(run, "best"), map_location="cuda")
+        fresh = models.select("cvt_13_normalize", from_args(train_args)).cuda()
+        fresh.load_state_dict(best["params"])
+        # against the weights the trained model held when `best` was evaluated
+        trained = evaluated.get(best["step"], {})
+        have = fresh.state_dict()
+        loaded = (set(have) == set(trained)
+                  and all(torch.equal(v.cpu(), trained[k]) for k, v in have.items()))
+        say(f"[recipe] best/state.pt (epoch {best['epoch']}, step {best['step']}) loads into a "
+            f"fresh model bitwise equal to the trained model at that evaluation "
+            f"(evaluations at steps {sorted(evaluated)}): {loaded}")
+        if not loaded:
+            raise AssertionError("recipe: best/state.pt did not load bitwise")
+
+        saved = load_checkpoint(os.path.join(run, "latest"))
+        resumed = train_baseline.main(RECIPE_TRAIN_ARGS + src + [
+            "--resume_path", os.path.join(run, "latest"), "--start_epoch", "2",
+            "--n_epochs", "3", "--save_path", os.path.join(work, "resumed")])
+        state = resumed["state"]
+        adam_steps = {float(st["step"]) for st in state.optimizer.state.values()}
+        say(f"[recipe] resumed latest (epoch {saved['epoch']}, step {saved['step']}): restored "
+            f"{resumed['resumed']}, {len(resumed['step_loss'])} more steps to step "
+            f"{state.step}, Adam step counts {sorted(adam_steps)}, losses "
+            + " ".join(f"{x:.6f}" for x in resumed["step_loss"]))
+        if (resumed["resumed"] != (saved["epoch"], saved["step"])
+                or state.step != saved["step"] + len(resumed["step_loss"])
+                or adam_steps != {float(state.step)}
+                or not all(math.isfinite(x) for x in resumed["step_loss"])):
+            raise AssertionError("recipe: the resumed run did not continue the saved state")
+
+        eval_args = RECIPE_EVAL_ARGS + src + ["--resume_path", os.path.join(run, "best")]
+        runs, walls = [], []
+        for i in range(2):
+            sinkhorn_scores.launches = filter_threshold.launches = 0
+            t0 = time.perf_counter()
+            runs.append(test_diml.run_eval(from_args(eval_args), trunc_nums=(0, 100)))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            launches = {"sinkhorn_score": sinkhorn_scores.launches,
+                        "filter_threshold": filter_threshold.launches}
+            check_metrics("recipe", runs[-1])
+            say(f"[recipe] test_diml_cvt from best, run {i + 1}: {walls[-1]:.3f}s, "
+                f"launches {launches}")
+            if min(launches.values()) <= 0:
+                raise AssertionError(f"recipe: K1 or K2 was not launched: {launches}")
+        say(f"[recipe] the two evaluations' metrics identical: {runs[0] == runs[1]}")
+        if runs[0] != runs[1]:
+            raise AssertionError("recipe: two evaluations of best disagree")
+        secs = summary["step_seconds"]
+        say(f"[recipe] step seconds (CUDA events): first {secs[0]:.4f}, warm "
+            + " ".join(f"{x:.4f}" for x in secs[1:]) + f"; eval wall first {walls[0]:.3f}s, "
+            f"warm {walls[1]:.3f}s; loader host s a batch: training {tr_s:.4f}, "
+            f"evaluation {te_s:.4f}")
+
+
+def phase_swin_recipe(torch):
+    """An SOP-layout tree (30 training and 30 test classes of 4 JPEGs, the
+    Ebay_*.txt lists with their header) evaluated with
+    scripts/diml/test_diml_swin.sh's flags from a stand-in of the ImageNet
+    Swin-T checkpoint (featvit from the head tokens), K1 counted."""
+    from vit_reranking_tpu_torch.cli import test_diml_swin
+    from vit_reranking_tpu_torch.ops.rerank import sinkhorn_scores
+
+    si = stand_ins()
+    with scratch_cwd() as work:
+        source = os.path.join(work, "data")
+        si.write_sop_tree(os.path.join(source, "online_products"), n_train=30, n_test=30,
+                          per_class=4, seed=1, sides=(240, 420))
+        ckpt = os.path.join(work, "swin_tiny_patch4_window7_224.pth")
+        torch.save({"model": si.manifest_state_dict("swin_tiny")}, ckpt)
+        sinkhorn_scores.launches = 0
+        t0 = time.perf_counter()
+        results = test_diml_swin.main(SWIN_RECIPE_ARGS + ["--source_path", source,
+                                                          "--pretrained_ckpt", ckpt])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_metrics("swin-recipe", results)
+        say(f"[swin-recipe] test_diml_swin {wall:.3f}s (first run), K1 launches "
+            f"{sinkhorn_scores.launches}")
+        if sinkhorn_scores.launches <= 0:
+            raise AssertionError("swin-recipe: K1 was not launched")
+
+
 def main():
     import torch
 
@@ -1895,6 +2127,8 @@ def main():
     phase_vit(torch, "vit-featvit", VIT_ARGS)
     phase_vit_profile(torch)
     phase_vit_reference(torch)
+    phase_recipe(torch)
+    phase_swin_recipe(torch)
     kernels = [
         dict(name="sinkhorn_score", route="cuda",
              source="vit_reranking_tpu_torch/csrc/sinkhorn_score.cu",

@@ -43,7 +43,8 @@ def test_port_files_found():
     names = {str(p.relative_to(ROOT)) for p in FILES}
     for module in ("ops/attention", "engine/train", "losses/margin", "miners/distance",
                    "data/samplers", "core/checkpoint", "core/logger", "cli/train_baseline",
-                   "models/swin", "ops/swin_attention", "models/vit", "cli/test_diml_vit"):
+                   "models/swin", "ops/swin_attention", "models/vit", "cli/test_diml_vit",
+                   "data/transforms", "data/datasets", "core/convert", "cli/test_diml_swin"):
         assert f"vit_reranking_tpu_torch/{module}.py" in names
 
 

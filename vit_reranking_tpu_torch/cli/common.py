@@ -1,33 +1,37 @@
 """Shared CLI wiring: seeding, model/loss/miner/optimizer assembly from a
 Config, and the per-batch train step.
 
-Port of vit_reranking_tpu/cli/common.py for one card: the mesh, the
-device-resident image cache, resuming and step checkpoints come later.
+Port of vit_reranking_tpu/cli/common.py for one card, with pretrained
+init, resuming and step checkpoints: the mesh and the device-resident image
+cache come later.
 """
 
 from __future__ import annotations
 
+import os
 import random
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from .. import losses, miners
 from .. import models as archs
+from ..core import convert
+from ..core.checkpoint import load_checkpoint, save_checkpoint
 from ..core.config import Config
 from ..engine.train import TrainState, init_train_state, make_optimizer, train_step
 
 
 # JAX package options the port does not have yet: setting one raises
-UNPORTED = ("cache_device", "mesh_shape", "resume_path", "checkpoint_every_steps")
+UNPORTED = ("cache_device", "mesh_shape")
 
 
 def refuse_unported(opt: Config, what: str, reduced_precision: bool = False) -> None:
     """Raise ``NotImplementedError`` naming the first option of ``opt`` whose
-    effect the port lacks (the device image cache, meshes, checkpoint
-    loading, step checkpoints; bf16 and the narrowed softmax unless
-    ``reduced_precision``, which training has and evaluation does not),
+    effect the port lacks (the device image cache, meshes; bf16 and the
+    narrowed softmax unless ``reduced_precision``, which training has and
+    evaluation does not),
     rather than parse it and run without it.  ``what`` says what the CLI
     does in f32 ("evaluates")."""
     for flag in () if reduced_precision else ("bf16", "narrow_sm"):
@@ -67,14 +71,81 @@ def build_labels(opt: Config, model: torch.nn.Module,
     return groups
 
 
+def load_pretrained_into(opt: Config, model: torch.nn.Module) -> torch.nn.Module:
+    """Convert the torch checkpoint ``opt.pretrained_ckpt`` (a state dict,
+    or one under ``model`` or ``state_dict``) into ``model`` when one is
+    configured: the strict audit of core/convert.py first, then the converted
+    entries laid over the model's own, the ones it does not cover (the fresh
+    head) printed.  A path that does not exist raises
+    ``FileNotFoundError`` (the JAX package skips it and trains from random
+    init)."""
+    if not opt.pretrained_ckpt:
+        return model
+    if not os.path.exists(opt.pretrained_ckpt):
+        raise FileNotFoundError(f"--pretrained_ckpt {opt.pretrained_ckpt} does not exist")
+    sd = torch.load(opt.pretrained_ckpt, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "model" in sd and hasattr(sd["model"], "keys"):
+        sd = sd["model"]
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    target = model.state_dict()
+    report = convert.audit_conversion(opt.arch, sd, target=target, strict=True)
+    heads = report["uncovered"]
+    if heads:
+        print(f"[convert:{opt.arch}] {len(heads)} model entries not in the checkpoint "
+              f"(a fresh head is expected): {heads[:8]}{' ...' if len(heads) > 8 else ''}")
+    model.load_state_dict(convert.merge_params(target, report["converted"]))
+    return model
+
+
+def train_checkpoint(state: TrainState, epoch: int) -> Dict[str, Any]:
+    """What a trainer checkpoint holds: the model's, the criterion's and the
+    optimizer's state dicts, the step count and the epoch."""
+    return {
+        "params": state.model.state_dict(),
+        "loss_params": state.criterion.state_dict(),
+        "opt_state": state.optimizer.state_dict(),
+        "step": state.step,
+        "epoch": epoch,
+    }
+
+
+def maybe_step_checkpoint(opt: Config, run_dir: str, state: TrainState, epoch: int,
+                          step: int) -> None:
+    """Refresh ``{run_dir}/latest`` every ``--checkpoint_every_steps`` steps
+    (``step`` counts this run's steps), so an interrupted run loses at most
+    that many; resuming from it restarts the interrupted epoch."""
+    every = opt.checkpoint_every_steps
+    if every and step % every == 0:
+        save_checkpoint(f"{run_dir}/latest", train_checkpoint(state, epoch), {})
+
+
+def resume_train_state(path: str, state: TrainState) -> int:
+    """Restore a trainer checkpoint into ``state``: the model, the criterion,
+    the optimizer (its state moved to the parameters' device) and the step
+    count, so the learning-rate schedule continues.  Entries a checkpoint
+    lacks (one holding only ``params``) keep their values.  Returns the
+    saved epoch (reference train_diml.py:206-213)."""
+    device = next(state.model.parameters()).device
+    ckpt = load_checkpoint(path, map_location=device)
+    state.model.load_state_dict(ckpt["params"])
+    if "loss_params" in ckpt:
+        state.criterion.load_state_dict(ckpt["loss_params"])
+    if "opt_state" in ckpt:
+        state.optimizer.load_state_dict(ckpt["opt_state"])
+    state.step = int(ckpt.get("step", state.step))
+    return int(ckpt.get("epoch", 0))
+
+
 def build_training(opt: Config, steps_per_epoch: int, device: torch.device):
     """Assemble ``(model, criterion, state)`` on ``device``: the model
-    randomly initialised from a generator seeded with ``opt.seed``, the
-    criterion with its miner, and an optimizer whose groups follow
-    :func:`build_labels`."""
+    randomly initialised from a generator seeded with ``opt.seed``, then
+    ``--pretrained_ckpt`` converted into it, the criterion with its miner,
+    and an optimizer whose groups follow :func:`build_labels`."""
     model = archs.select(
         opt.arch, opt, generator=torch.Generator().manual_seed(opt.seed)
-    ).to(device)
+    )
+    model = load_pretrained_into(opt, model).to(device)
     miner = (
         miners.select(opt.batch_mining, opt)
         if losses.LOSSES[opt.loss].REQUIRES_BATCHMINER

@@ -11,14 +11,18 @@ print the metric table and append a row to
 ``--use_qk`` the method is featvit (cross-attention marginals).
 
 The model is randomly initialised from a ``torch.Generator`` seeded with
-``--seed``; checkpoint and pretrained loading, feature caching and the
-``--sweep`` over trained runs come with later slices, and the options that
-need them (``--resume_path``, ``--bf16``, ``--narrow_sm``,
-``--cache_device``, ``--mesh_shape``, ``--checkpoint_every_steps``) raise.
-Tensors live on ``--device`` (``cuda`` unless told otherwise).
+``--seed``, then ``--pretrained_ckpt`` (a torch checkpoint of the
+reference's backbone) is converted into it, and ``--resume_path`` (a run's
+``best`` or ``latest`` directory) replaces its weights with the trained
+ones.  ``--sweep RUNS_ROOT`` evaluates every run under a root and writes
+one row a run to ``test_results/sweep_{dataset}.csv``.  Feature caching
+(``--cache_path``) and ``--bf16``, ``--narrow_sm``, ``--cache_device`` and
+``--mesh_shape`` wait for later slices; those four options raise.  Tensors
+live on ``--device`` (``cuda`` unless told otherwise).
 
-    python -m vit_reranking_tpu_torch.cli.test_diml_cvt --dataset synthetic \
-        --arch cvt_13_normalize --use_rollout --use_ot --bs 32
+    python -m vit_reranking_tpu_torch.cli.test_diml_cvt --dataset cub200 \
+        --source_path data --arch cvt_13_normalize --resume_path RUN/best \
+        --use_cls_token --use_inverse --use_rollout --use_ot --bs 16
     python -m vit_reranking_tpu_torch.cli.test_diml_vit --dataset synthetic \
         --arch vit_normalize --use_qk --blk_ind 0 --use_ot --grid_size 14 --bs 16
 """
@@ -27,16 +31,18 @@ from __future__ import annotations
 
 import csv
 import os
+import sys
 import time
 
 import torch
 
 from .. import models as archs
+from ..core.checkpoint import load_checkpoint
 from ..core.config import Config, from_args
 from ..data.loader import build_eval_loaders
 from ..engine.extract import extract_features
 from ..engine.rerank_eval import rerank_evaluate
-from .common import refuse_unported
+from .common import load_pretrained_into, refuse_unported
 
 
 def _sync(device: torch.device) -> None:
@@ -45,6 +51,9 @@ def _sync(device: torch.device) -> None:
 
 
 def run_eval(opt: Config, trunc_nums=(0, 100)):
+    """Evaluate ``opt``'s model at each truncation of ``trunc_nums`` below
+    the test split's size; returns ``{"r1", "rp", "mapr"}``, each truncation
+    -> percent."""
     refuse_unported(opt, "evaluates")
     device = torch.device(opt.device)
     # f32 products and convolutions in full f32, as the JAX package pins
@@ -59,6 +68,9 @@ def run_eval(opt: Config, trunc_nums=(0, 100)):
     batches.close()
     gen = torch.Generator().manual_seed(opt.seed)
     model = archs.select(opt.arch, opt, generator=gen, img_size=images0.shape[1])
+    model = load_pretrained_into(opt, model)
+    if opt.resume_path:
+        model.load_state_dict(load_checkpoint(opt.resume_path)["params"])
     model = model.to(device).eval()
 
     # JAX cli/test_diml.py:148-154 (the port has no --use_cam, --use_mh or
@@ -131,7 +143,43 @@ def run_eval(opt: Config, trunc_nums=(0, 100)):
     return results
 
 
+def sweep(opt: Config, runs_root: str, trunc_nums=(0, 100)):
+    """Evaluate every trained run under ``runs_root`` (its ``best``
+    checkpoint, else its ``latest``; the reference's sweep tables,
+    test_diml.py:100-183) and write one row a run to
+    ``test_results/sweep_{dataset}.csv``.  Returns ``[(run, results)]``."""
+    rows = []
+    for name in sorted(os.listdir(runs_root)):
+        for which in ("best", "latest"):
+            ckpt = os.path.join(runs_root, name, which)
+            if os.path.isdir(ckpt):
+                break
+        else:
+            continue
+        print(f"=== {name} ===")
+        rows.append((name, run_eval(opt.replace(resume_path=ckpt, group=name), trunc_nums)))
+    # the truncations run_eval kept (those below the test split's size)
+    truncs = tuple(rows[0][1]["r1"]) if rows else trunc_nums
+    os.makedirs("test_results", exist_ok=True)
+    out_csv = f"test_results/sweep_{opt.dataset}.csv"
+    with open(out_csv, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["run"] + [f"{m}@{t}" for m in ("r1", "rp", "mapr") for t in truncs])
+        for name, res in rows:
+            w.writerow([name] + [round(res[m][t], 4)
+                                 for m in ("r1", "rp", "mapr") for t in truncs])
+    print(f"sweep table written to {out_csv}")
+    return rows
+
+
 def main(argv=None):
+    """Parse ``argv`` (default ``sys.argv[1:]``); ``--sweep RUNS_ROOT``
+    evaluates every run under the root, otherwise one evaluation."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if "--sweep" in argv:
+        i = argv.index("--sweep")
+        runs_root = argv[i + 1]
+        return sweep(from_args(argv[:i] + argv[i + 2:]), runs_root, trunc_nums=(0, 100))
     return run_eval(from_args(argv), trunc_nums=(0, 100))
 
 

@@ -4,16 +4,21 @@ Port of vit_reranking_tpu/cli/train_baseline.py for one card: the same
 flags and loop shape (per-epoch training with mining and loss, eval every
 ``--evalevery`` epochs: test-set embedding -> N x N cosine with
 self-masking -> R@1 / RP / MAP@R, best-checkpoint copy on R@1, patience
-early stop).  The model is randomly initialised from ``--seed``.  The
-precision is the JAX package's default: on the card, CvT and Swin train
-with bf16 activations and the narrowed softmax (f32 parameters, BatchNorm
-statistics, Adam state, LayerNorms and head); ``--no-bf16`` trains in f32,
-as every run on the CPU does (``core/config.py::resolve_precision``).
-Options the port does not have yet (the device image cache, meshes,
-resuming, step checkpoints) raise.
+early stop).  The model is randomly initialised from ``--seed``, then
+``--pretrained_ckpt`` (the reference's torch checkpoint of the backbone) is
+converted into it.  ``--resume_path`` restores a run's checkpoint (model,
+loss, optimizer and step count; the loop still starts at
+``--start_epoch``); ``--save_every_epoch`` and ``--checkpoint_every_steps``
+refresh ``latest`` between evaluations.  The precision is the JAX package's
+default: on the card, CvT and Swin train with bf16 activations and the
+narrowed softmax (f32 parameters, BatchNorm statistics, Adam state,
+LayerNorms and head); ``--no-bf16`` trains in f32, as every run on the CPU
+does (``core/config.py::resolve_precision``).  Options the port does not
+have yet (the device image cache, meshes) raise.
 
-    python -m vit_reranking_tpu_torch.cli.train_baseline --dataset synthetic \
-        --arch cvt_13_normalize --loss margin --batch_mining distance \
+    python -m vit_reranking_tpu_torch.cli.train_baseline --dataset cub200 \
+        --source_path data --arch cvt_13_normalize --loss margin \
+        --batch_mining distance --pretrained_ckpt CvT-13-224x224-IN-1k.pth \
         --save_path "$(mktemp -d)"
 """
 
@@ -32,7 +37,9 @@ from ..data.loader import build_dataset
 from ..engine.extract import extract_features
 from ..engine.metrics import metrics_from_scores, summarize
 from ..ops.topk import similarity_matrix
-from .common import build_training, refuse_unported, run_train_step, seed_everything
+from .common import (build_training, maybe_step_checkpoint, refuse_unported,
+                     resume_train_state, run_train_step, seed_everything,
+                     train_checkpoint)
 
 
 def evaluate_plain(model, loader, device) -> Dict[str, float]:
@@ -80,8 +87,10 @@ class _StepClock:
 
 def main(argv=None) -> Dict[str, object]:
     """Train; returns ``{"best_r1", "step_loss", "step_seconds", "eval",
-    "run_dir"}``: every step's loss and seconds (from the batch's copy to the
-    card to the end of the optimizer update) and each evaluation's metrics.
+    "run_dir", "resumed", "state"}``: every step's loss and seconds (from the
+    batch's copy to the card to the end of the optimizer update), each
+    evaluation's metrics, the ``(epoch, step)`` a resumed run restored (else
+    None) and the final ``TrainState``.
     Losses stay on the device until the epoch ends, as in the JAX package:
     no step waits for the host."""
     opt = resolve_precision(from_args(argv))
@@ -101,15 +110,20 @@ def main(argv=None) -> Dict[str, object]:
     loaders, _ = build_dataset(opt)
     train_loader = loaders["training"]
     steps_per_epoch = len(train_loader)
-    model, criterion, state = build_training(opt, steps_per_epoch, device)
+    model, _, state = build_training(opt, steps_per_epoch, device)
     logger = RunLogger(opt)
     print(f"[train_baseline] run dir: {logger.run_dir}")
+    resumed = None
+    if opt.resume_path:
+        resumed = (resume_train_state(opt.resume_path, state), state.step)
+        print(f"[train_baseline] resumed {opt.resume_path} (epoch {resumed[0]}, "
+              f"step {resumed[1]})")
 
     # the miner's draws (the JAX package's PRNGKey(seed + 1) stream)
     generator = torch.Generator(device=device).manual_seed(opt.seed + 1)
     summary = {"best_r1": -1.0, "step_loss": [], "step_seconds": [], "eval": [],
-               "run_dir": logger.run_dir}
-    best_r1, patience_ctr = -1.0, 0
+               "run_dir": logger.run_dir, "resumed": resumed, "state": state}
+    best_r1, patience_ctr, step = -1.0, 0, 0
     clock = _StepClock(device)
     for epoch in range(opt.start_epoch, opt.n_epochs):
         t0 = time.time()
@@ -119,6 +133,8 @@ def main(argv=None) -> Dict[str, object]:
             m = run_train_step(state, lab, images, generator, device)
             clock.stop(begun)
             epoch_losses.append(m["loss"])
+            step += 1
+            maybe_step_checkpoint(opt, logger.run_dir, state, epoch, step)
         secs = clock.drain()
         epoch_losses = [float(x) for x in epoch_losses]
         first = state.step - len(epoch_losses) + 1
@@ -139,6 +155,11 @@ def main(argv=None) -> Dict[str, object]:
         print(f"epoch {epoch}: loss={np.mean(epoch_losses):.4f} "
               f"({time.time() - t0:.1f}s, {steps_per_epoch} steps)")
 
+        if opt.save_every_epoch and epoch % opt.evalevery != 0:
+            # keep `latest` fresh between evaluations, so a resumed run
+            # loses at most one epoch
+            save_checkpoint(f"{logger.run_dir}/latest", train_checkpoint(state, epoch), {})
+
         if epoch % opt.evalevery == 0 or epoch == opt.n_epochs - 1:
             te = time.time()
             metrics = evaluate_plain(model, loaders["testing"], device)
@@ -146,14 +167,7 @@ def main(argv=None) -> Dict[str, object]:
             summary["eval"].append(metrics)
             logger.log("Test", metrics, epoch)
             print(f"  eval ({time.time() - te:.1f}s): {metrics}")
-            ckpt = {
-                "params": model.state_dict(),
-                "loss_params": criterion.state_dict(),
-                "opt_state": state.optimizer.state_dict(),
-                "step": state.step,
-                "epoch": epoch,
-            }
-            save_checkpoint(f"{logger.run_dir}/latest", ckpt, metrics)
+            save_checkpoint(f"{logger.run_dir}/latest", train_checkpoint(state, epoch), metrics)
             if metrics["r1"] > best_r1:
                 best_r1 = metrics["r1"]
                 copy_best(logger.run_dir)

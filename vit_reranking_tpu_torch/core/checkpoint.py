@@ -3,7 +3,9 @@ checkpoint directory, metrics beside it as JSON.
 
 Port of vit_reranking_tpu/core/checkpoint.py (which uses Orbax), with the
 same layout: ``{run_dir}/latest/`` and ``{run_dir}/latest.metrics.json``,
-copied to ``best`` when R@1 improves.  Loading and resuming come later.
+copied to ``best`` when R@1 improves.  A checkpoint holds ``params`` (the
+model's ``state_dict``), ``loss_params`` (the criterion's), ``opt_state``
+(the optimizer's), ``step`` and ``epoch``.
 """
 
 from __future__ import annotations
@@ -30,6 +32,14 @@ def save_checkpoint(path: str, state: Dict[str, Any], metrics: Optional[dict] = 
     if metrics is not None:
         with open(path + ".metrics.json", "w") as f:
             json.dump(metrics, f, indent=1)
+
+
+def load_checkpoint(path: str, map_location="cpu") -> Dict[str, Any]:
+    """The state saved by :func:`save_checkpoint` into the directory
+    ``path``, its tensors on ``map_location``.  Only tensors and plain
+    containers are unpickled (``weights_only``)."""
+    return torch.load(os.path.join(path, STATE_FILE), map_location=map_location,
+                      weights_only=True)
 
 
 def copy_best(run_dir: str, name: str = "latest"):

@@ -2,9 +2,10 @@
 
 A subset of the JAX package's ``core/config.py`` (which mirrors the
 reference's argparse flags, parameters.py:5-244): the fields the rerank
-evaluation (rollout, featvit and qk methods) and the margin-loss training
-read, with the same names and defaults, plus ``device``.  ``build_parser()`` regenerates an argparse parser
-from the fields and ``from_args`` parses a command line.
+evaluation (rollout, featvit and qk methods), the margin-loss training, the
+image-tree datasets, checkpoints and pretrained init read, with the same
+names and defaults, plus ``device``.  ``build_parser()`` regenerates an
+argparse parser from the fields and ``from_args`` parses a command line.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import List, Optional, Sequence
 class Config:
     # ---- dataset (parameters.py:7-13)
     dataset: str = "cub200"
+    augmentation: str = "base"  # training transform preset: base, adv, big, red
     # ---- general training (parameters.py:16-40)
     lr: float = 0.00001
     fc_lr: float = -1.0
@@ -43,6 +45,7 @@ class Config:
     arch: str = "resnet50_frozen_normalize"
     # ---- setup (parameters.py:67-70); the default save_path is the working
     # directory's Training_Results, as in the JAX package
+    source_path: str = os.getcwd() + "/data"  # datasets live in source_path/<dataset>
     save_path: str = os.getcwd() + "/Training_Results"
     group: str = "default"
     # ---- ViT / DIML evaluation (parameters.py:73-120)
@@ -89,10 +92,16 @@ class Config:
     # bf16.  The evaluation CLI refuses both.
     bf16: Optional[bool] = None
     narrow_sm: Optional[bool] = None
+    # refresh `latest` between evaluations: at the end of every epoch, and
+    # every N optimizer steps (0: never)
+    save_every_epoch: bool = False
+    checkpoint_every_steps: int = 0
+    # a torch checkpoint of the reference's backbone (ImageNet weights),
+    # converted into the model at init (core/convert.py)
+    pretrained_ckpt: Optional[str] = None
     # JAX package options the port does not have yet: setting one raises
     cache_device: bool = False
     mesh_shape: Optional[str] = None
-    checkpoint_every_steps: int = 0
     # ---- port addition: where tensors live ("cuda" or "cpu")
     device: str = "cuda"
 
