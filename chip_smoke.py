@@ -41,7 +41,17 @@ seeded generator:
     epochs on the card's default bf16 (K3's bf16 form), resumed from
     `latest`, and its `best` evaluated with scripts/diml/test_diml_cvt.sh's
     flags, twice (K1, K2); then an SOP-layout tree evaluated from a Swin-T
-    stand-in with scripts/diml/test_diml_swin.sh's flags (K1).
+    stand-in with scripts/diml/test_diml_swin.sh's flags (K1);
+  * the device-resident image pools (--cache_device) on that CUB tree: the
+    same recipe trained with its batches gathered and augmented on the card
+    (K3's bf16 form; the augmentation held against its CPU version; host
+    seconds a step from the loader and from the pool, in turns), and its
+    `best` evaluated from the loader and from the pool in turns (K1, K2;
+    the metrics within 1e-3 points);
+  * DeiT-S training on the card's default precision (bf16, narrowed
+    softmax; no port kernel: its attention materialises), against --no-bf16
+    in turns and one step against the CPU's; and the CvT evaluation with
+    --bf16, rollout (K2, K1) and featvit (K3's bf16 forward, K1), beside f32.
 
 For each path it checks that its kernels carried it (launch counts set to 0
 just before and read just after), and it checks the models' forward or one
@@ -95,6 +105,12 @@ BF16_GRAD_TOL = 2e-2
 # card vs CPU bf16 train step: the CPU tests' bf16 bars (tests/test_torch_bf16.py)
 BF16_STEP_LOSS_RTOL = 1e-2
 BF16_STEP_GRAD_RTOL = 5e-2
+# the pool's augmentation on the card vs its plain CPU version on the same
+# draws (the CPU tests hold the plain version within 1e-5 of the JAX package)
+AUG_TOL = 1e-5
+# evaluations from the loader and from the resident pool
+# (tests/test_device_cache.py:236)
+METRIC_POINTS = 1e-3
 
 
 def say(*parts):
@@ -1882,7 +1898,7 @@ def loader_rate(loader, passes):
     seconds a batch after the first, and the batch count."""
     from vit_reranking_tpu_torch.data.loader import DataLoader
 
-    batches = [b for _ in range(passes) for b in loader._index_batches()]
+    batches = [b for _ in range(passes) for b in loader.iter_index_batches()]
     stream = DataLoader(loader.dataset, batch_sampler=batches,
                         num_workers=loader.num_workers)
     t0 = time.perf_counter()
@@ -1918,27 +1934,12 @@ SWIN_RECIPE_ARGS = [
 ]
 
 
-def phase_recipe(torch):
-    """The CUB recipe round trip on a written tree (120 classes of 4 JPEGs,
-    sides 240-420 px: 60 training and 60 test classes) from a stand-in of
-    the ImageNet CvT-13 checkpoint: the loader alone (24 training and 30
-    evaluation batches, each in one stream), then train_baseline for 2
-    epochs on the card's defaults (bf16, K3's bf16 launches counted; the
-    trunk before the first step must be the converted checkpoint, bit for
-    bit), `best` loaded into a fresh model and held against the weights
-    the trained model had at the evaluation that made it best, a resume
-    from `latest` for one more epoch, and test_diml_cvt from `best` twice
-    (K1 and K2 counted; the two runs' metrics identical)."""
-    from vit_reranking_tpu_torch import models
-    from vit_reranking_tpu_torch.cli import test_diml, train_baseline
-    from vit_reranking_tpu_torch.core import convert
-    from vit_reranking_tpu_torch.core.checkpoint import load_checkpoint
-    from vit_reranking_tpu_torch.core.config import from_args
-    from vit_reranking_tpu_torch.data.loader import build_dataset, build_eval_loaders
-    from vit_reranking_tpu_torch.ops.attention import kv_resident_attention
-    from vit_reranking_tpu_torch.ops.rerank import sinkhorn_scores
-    from vit_reranking_tpu_torch.ops.rollout import filter_threshold
-
+@contextlib.contextmanager
+def recipe_tree(torch):
+    """A temporary working directory holding a CUB200-layout tree (120
+    classes of 4 JPEGs, sides 240-420 px: 60 training and 60 test classes)
+    under ``data/cub200`` and a stand-in of the ImageNet CvT-13 checkpoint;
+    yields (work, source, ckpt, sd)."""
     si = stand_ins()
     with scratch_cwd() as work:
         t0 = time.perf_counter()
@@ -1950,113 +1951,370 @@ def phase_recipe(torch):
         torch.save(sd, ckpt)
         say(f"[recipe] wrote 480 JPEGs and a {len(sd)}-key CvT-13 checkpoint stand-in in "
             f"{time.perf_counter() - t0:.3f}s")
-        src = ["--source_path", source]
-        train_args = RECIPE_TRAIN_ARGS + src + ["--pretrained_ckpt", ckpt,
-                                                "--save_path", os.path.join(work, "runs")]
+        yield work, source, ckpt, sd
 
-        loaders, _ = build_dataset(from_args(train_args))
-        rates = {
-            "training": loader_rate(loaders["training"], passes=12),
-            "evaluation": loader_rate(
-                build_eval_loaders(from_args(RECIPE_EVAL_ARGS + src))["testing"], passes=2),
-        }
-        for name, (first, per_s, steady, n), what in zip(
-                rates, rates.values(), ("112, TrainTransform base", "16, EvalTransform")):
-            say(f"[recipe] loader alone, {name} (JPEG decode + transform, 6 threads, no "
-                f"model): {n} batches of {what} in one stream: first batch {first:.4f}s, "
-                f"{per_s:.4f} batches/s over the window, {steady:.4f}s a batch after the first")
-        tr_s, te_s = rates["training"][2], rates["evaluation"][2]
 
-        converted = convert.convert_for_arch("cvt_13_normalize", sd)
-        first = []
-        evaluated = {}  # step count -> the weights the model held at that evaluation
-        states = []
-        real_step, real_eval = train_baseline.run_train_step, train_baseline.evaluate_plain
+def phase_recipe(torch, work, source, ckpt, sd):
+    """The CUB recipe round trip on the tree of :func:`recipe_tree` from its
+    checkpoint stand-in: the loader alone (24 training and 30
+    evaluation batches, each in one stream), then train_baseline for 2
+    epochs on the card's defaults (bf16, K3's bf16 launches counted; the
+    trunk before the first step must be the converted checkpoint, bit for
+    bit), `best` loaded into a fresh model and held against the weights
+    the trained model had at the evaluation that made it best, a resume
+    from `latest` for one more epoch, and test_diml_cvt from `best` twice
+    (K1 and K2 counted; the two runs' metrics identical).  Returns the
+    loader's host seconds a training batch."""
+    from vit_reranking_tpu_torch import models
+    from vit_reranking_tpu_torch.cli import test_diml, train_baseline
+    from vit_reranking_tpu_torch.core import convert
+    from vit_reranking_tpu_torch.core.checkpoint import load_checkpoint
+    from vit_reranking_tpu_torch.core.config import from_args
+    from vit_reranking_tpu_torch.data.loader import build_dataset, build_eval_loaders
+    from vit_reranking_tpu_torch.ops.attention import kv_resident_attention
+    from vit_reranking_tpu_torch.ops.rerank import sinkhorn_scores
+    from vit_reranking_tpu_torch.ops.rollout import filter_threshold
 
-        def checked_step(state, *args):
-            if not first:
-                have = state.model.state_dict()
-                first.append(all(torch.equal(have[k].cpu(), v) for k, v in converted.items()))
-                states.append(state)
-            return real_step(state, *args)
+    src = ["--source_path", source]
+    train_args = RECIPE_TRAIN_ARGS + src + ["--pretrained_ckpt", ckpt,
+                                            "--save_path", os.path.join(work, "runs")]
 
-        def snapshot_eval(model, *args):
-            evaluated[states[0].step] = {k: v.detach().cpu().clone()
-                                         for k, v in model.state_dict().items()}
-            return real_eval(model, *args)
+    loaders, _ = build_dataset(from_args(train_args))
+    rates = {
+        "training": loader_rate(loaders["training"], passes=12),
+        "evaluation": loader_rate(
+            build_eval_loaders(from_args(RECIPE_EVAL_ARGS + src))["testing"], passes=2),
+    }
+    for name, (first, per_s, steady, n), what in zip(
+            rates, rates.values(), ("112, TrainTransform base", "16, EvalTransform")):
+        say(f"[recipe] loader alone, {name} (JPEG decode + transform, 6 threads, no "
+            f"model): {n} batches of {what} in one stream: first batch {first:.4f}s, "
+            f"{per_s:.4f} batches/s over the window, {steady:.4f}s a batch after the first")
+    tr_s, te_s = rates["training"][2], rates["evaluation"][2]
 
-        for c in COUNTERS:
-            setattr(kv_resident_attention, f"{c}_launches", 0)
+    converted = convert.convert_for_arch("cvt_13_normalize", sd)
+    first = []
+    evaluated = {}  # step count -> the weights the model held at that evaluation
+    states = []
+    real_step, real_eval = train_baseline.run_train_step, train_baseline.evaluate_plain
+
+    def checked_step(state, *args):
+        if not first:
+            have = state.model.state_dict()
+            first.append(all(torch.equal(have[k].cpu(), v) for k, v in converted.items()))
+            states.append(state)
+        return real_step(state, *args)
+
+    def snapshot_eval(model, *args):
+        evaluated[states[0].step] = {k: v.detach().cpu().clone()
+                                     for k, v in model.state_dict().items()}
+        return real_eval(model, *args)
+
+    for c in COUNTERS:
+        setattr(kv_resident_attention, f"{c}_launches", 0)
+    t0 = time.perf_counter()
+    with switched([(train_baseline, "run_train_step", checked_step),
+                   (train_baseline, "evaluate_plain", snapshot_eval)]):
+        summary = train_baseline.main(train_args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c: getattr(kv_resident_attention, f"{c}_launches") for c in COUNTERS}
+    steps = len(summary["step_loss"])
+    say(f"[recipe] trunk before the first step is the converted checkpoint, bitwise: "
+        f"{first == [True]} ({len(converted)} entries)")
+    report_train("recipe", summary, wall, "K3", launches,
+                 launches["fwd_bf16"] > steps and launches["bwd_bf16"] == steps
+                 and launches["fwd"] == launches["bwd"] == 0, steps=4)
+    if first != [True]:
+        raise AssertionError("recipe: the trunk was not the converted checkpoint")
+
+    run = summary["run_dir"]
+    best = load_checkpoint(os.path.join(run, "best"), map_location="cuda")
+    fresh = models.select("cvt_13_normalize", from_args(train_args)).cuda()
+    fresh.load_state_dict(best["params"])
+    # against the weights the trained model held when `best` was evaluated
+    trained = evaluated.get(best["step"], {})
+    have = fresh.state_dict()
+    loaded = (set(have) == set(trained)
+              and all(torch.equal(v.cpu(), trained[k]) for k, v in have.items()))
+    say(f"[recipe] best/state.pt (epoch {best['epoch']}, step {best['step']}) loads into a "
+        f"fresh model bitwise equal to the trained model at that evaluation "
+        f"(evaluations at steps {sorted(evaluated)}): {loaded}")
+    if not loaded:
+        raise AssertionError("recipe: best/state.pt did not load bitwise")
+
+    saved = load_checkpoint(os.path.join(run, "latest"))
+    resumed = train_baseline.main(RECIPE_TRAIN_ARGS + src + [
+        "--resume_path", os.path.join(run, "latest"), "--start_epoch", "2",
+        "--n_epochs", "3", "--save_path", os.path.join(work, "resumed")])
+    state = resumed["state"]
+    adam_steps = {float(st["step"]) for st in state.optimizer.state.values()}
+    say(f"[recipe] resumed latest (epoch {saved['epoch']}, step {saved['step']}): restored "
+        f"{resumed['resumed']}, {len(resumed['step_loss'])} more steps to step "
+        f"{state.step}, Adam step counts {sorted(adam_steps)}, losses "
+        + " ".join(f"{x:.6f}" for x in resumed["step_loss"]))
+    if (resumed["resumed"] != (saved["epoch"], saved["step"])
+            or state.step != saved["step"] + len(resumed["step_loss"])
+            or adam_steps != {float(state.step)}
+            or not all(math.isfinite(x) for x in resumed["step_loss"])):
+        raise AssertionError("recipe: the resumed run did not continue the saved state")
+
+    eval_args = RECIPE_EVAL_ARGS + src + ["--resume_path", os.path.join(run, "best")]
+    runs, walls = [], []
+    for i in range(2):
+        sinkhorn_scores.launches = filter_threshold.launches = 0
         t0 = time.perf_counter()
-        with switched([(train_baseline, "run_train_step", checked_step),
-                       (train_baseline, "evaluate_plain", snapshot_eval)]):
-            summary = train_baseline.main(train_args)
+        runs.append(test_diml.run_eval(from_args(eval_args), trunc_nums=(0, 100)))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launches = {"sinkhorn_score": sinkhorn_scores.launches,
+                    "filter_threshold": filter_threshold.launches}
+        check_metrics("recipe", runs[-1])
+        say(f"[recipe] test_diml_cvt from best, run {i + 1}: {walls[-1]:.3f}s, "
+            f"launches {launches}")
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"recipe: K1 or K2 was not launched: {launches}")
+    say(f"[recipe] the two evaluations' metrics identical: {runs[0] == runs[1]}")
+    if runs[0] != runs[1]:
+        raise AssertionError("recipe: two evaluations of best disagree")
+    secs = summary["step_seconds"]
+    say(f"[recipe] step seconds (CUDA events): first {secs[0]:.4f}, warm "
+        + " ".join(f"{x:.4f}" for x in secs[1:]) + f"; eval wall first {walls[0]:.3f}s, "
+        f"warm {walls[1]:.3f}s; loader host s a batch: training {tr_s:.4f}, "
+        f"evaluation {te_s:.4f}")
+    return tr_s
+
+
+def capturing(module, name, into):
+    """A setting for :func:`switched`: ``module.name`` wrapped so that each
+    result is kept in the list ``into``."""
+    real = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        into.append(real(*args, **kwargs))
+        return into[-1]
+
+    return module, name, wrapper
+
+
+def paced_steps(torch, state, loader, pool, n):
+    """Host seconds a step over ``n`` train steps after one warm-up step,
+    each fed as train_baseline feeds it: a loader batch (JPEG decode and
+    transform in its threads, pinned copy) when ``pool`` is None, else the
+    batch's indices and labels and the gather and augmentation on the card;
+    the card synchronised once, at the end."""
+    from vit_reranking_tpu_torch.cli.common import epoch_batches, run_train_step
+    from vit_reranking_tpu_torch.data.loader import DataLoader
+
+    batches = [b for _ in range(-(-(n + 1) // len(loader))) for b in loader.iter_index_batches()]
+    stream = DataLoader(loader.dataset, batch_sampler=batches[:n + 1],
+                        num_workers=loader.num_workers)
+    items = iter(epoch_batches(stream, pool))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    lab, images, idx = next(items)
+    run_train_step(state, lab, images, gen, "cuda", pool, idx)  # the warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for lab, images, idx in items:
+        m = run_train_step(state, lab, images, gen, "cuda", pool, idx)
+    float(m["loss"])
+    return (time.perf_counter() - t0) / n
+
+
+def phase_cache_train(torch, work, source, ckpt, loader_s):
+    """scripts/baselines/cub_reprod.sh's flags (CvT-13 on the card's bf16,
+    batch 112, 2 epochs: 4 steps and the in-train evaluation) with
+    --cache_device on the recipe's tree: both pools resident, K3's bf16
+    launches counted; the on-device augmentation of a fixed batch against
+    the plain CPU version of the same draws (within 1e-5); then the host
+    seconds a step fed by the loader and by the pool, in turns (loader,
+    pool, pool, loader), beside the loader's own rate.  Returns the run's
+    `best` directory."""
+    from vit_reranking_tpu_torch.cli import train_baseline
+    from vit_reranking_tpu_torch.cli.common import build_training
+    from vit_reranking_tpu_torch.core.config import from_args, resolve_precision
+    from vit_reranking_tpu_torch.data.device_cache import DeviceImageCache
+    from vit_reranking_tpu_torch.data.loader import build_dataset
+    from vit_reranking_tpu_torch.ops.attention import kv_resident_attention
+
+    args = RECIPE_TRAIN_ARGS + ["--source_path", source, "--pretrained_ckpt", ckpt]
+    pools = []
+    torch.cuda.reset_peak_memory_stats()
+    for c in COUNTERS:
+        setattr(kv_resident_attention, f"{c}_launches", 0)
+    t0 = time.perf_counter()
+    with switched([capturing(train_baseline, "setup_pool", pools)]):
+        summary = train_baseline.main(args + ["--cache_device",
+                                              "--save_path", os.path.join(work, "cached")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c: getattr(kv_resident_attention, f"{c}_launches") for c in COUNTERS}
+    pool, eval_pool = pools
+    say(f"[cache-train] resident pools: training {tuple(pool.images.shape)} "
+        f"{pool.images.dtype} {pool.nbytes} bytes ({pool.augmentation}, out {pool.out_size}), "
+        f"test {tuple(eval_pool.images.shape)} {eval_pool.images.dtype} {eval_pool.nbytes} "
+        f"bytes; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    steps = len(summary["step_loss"])
+    report_train("cache-train", summary, wall, "K3", launches,
+                 launches["fwd_bf16"] > steps and launches["bwd_bf16"] == steps
+                 and launches["fwd"] == launches["bwd"] == 0, steps=4)
+    if not (pool.images.is_cuda and pool.images.dtype == torch.uint8 and eval_pool.images.is_cuda):
+        raise AssertionError("cache-train: the pools are not uint8 on the card")
+    if pool.out_size != 224:
+        raise AssertionError(f"cache-train: the pool crops to {pool.out_size}, the recipe's "
+                             "model takes 224")
+
+    idx = torch.arange(112, device="cuda") % pool.images.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    raw = pool.images.index_select(0, idx)
+    draws = pool.draw(112, gen)
+    out = pool.apply(raw, draws)
+    plain = DeviceImageCache(raw.cpu(), pool.out_size, pool.augmentation, pool.normalized)
+    ref = plain.apply(plain.images, {k: v.cpu() for k, v in draws.items()})
+    err = float((out.cpu() - ref).abs().max())
+    aug_ms = cuda_ms(torch, lambda: pool.augment(pool.images.index_select(0, idx), gen), reps=20)
+    say(f"[cache-train] on-device augmentation of a fixed batch of 112 (gather, draw, crop "
+        f"to {pool.out_size}, flip, normalise): {tuple(out.shape)}, max abs err against the "
+        f"plain CPU version of the same draws {err:.3e} (tolerance {AUG_TOL}); "
+        f"{aug_ms:.4f} ms a batch on the card (CUDA events)")
+    if not (out.shape == ref.shape and err <= AUG_TOL):
+        raise AssertionError(f"cache-train: the card's augmentation disagrees: {err}")
+
+    opt = resolve_precision(from_args(args + ["--save_path", os.path.join(work, "paced")]))
+    loader = build_dataset(opt)[0]["training"]
+    state = build_training(opt, len(loader), torch.device("cuda"))[2]
+    n = 16
+    paced = [(label, paced_steps(torch, state, loader, pool if label == "pool" else None, n))
+             for label in ("loader", "pool", "pool", "loader")]
+    secs = summary["step_seconds"]
+    say(f"[cache-train] host s a step over {n} steps after a warm-up, in turns: "
+        + ", ".join(f"{label} {t:.4f}" for label, t in paced)
+        + f"; the run's CUDA-event step s: first {secs[0]:.4f}, warm "
+        + " ".join(f"{x:.4f}" for x in secs[1:])
+        + f"; the loader alone {loader_s:.4f} s a batch ([recipe], this run)")
+    del state, pools, pool, eval_pool
+    torch.cuda.empty_cache()
+    return os.path.join(summary["run_dir"], "best")
+
+
+def phase_cache_eval(torch, source, best):
+    """test_diml_cvt (scripts/diml/test_diml_cvt.sh's flags: rollout, full
+    OT) from [cache-train]'s `best`, in turns from the loader, from the
+    resident pool twice, and from the loader again; K1 and K2 launched in
+    each, R@1, RP and MAP@R of every run within 1e-3 points of the first's,
+    and the pool's normalised input bitwise the host transform's."""
+    import numpy as np
+
+    from vit_reranking_tpu_torch.cli import test_diml
+    from vit_reranking_tpu_torch.core.config import from_args
+    from vit_reranking_tpu_torch.data.device_cache import PixelNormalizer
+    from vit_reranking_tpu_torch.data.loader import build_eval_loaders
+    from vit_reranking_tpu_torch.ops.rerank import sinkhorn_scores
+    from vit_reranking_tpu_torch.ops.rollout import filter_threshold
+
+    args = RECIPE_EVAL_ARGS + ["--source_path", source, "--resume_path", best]
+    runs, pools = [], []
+    for label in ("loader", "pool", "pool", "loader"):
+        sinkhorn_scores.launches = filter_threshold.launches = 0
+        t0 = time.perf_counter()
+        with switched([capturing(test_diml, "setup_pool", pools)]):
+            res = test_diml.run_eval(from_args(args + (["--cache_device"] if label == "pool"
+                                                       else [])), trunc_nums=(0, 100))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {c: getattr(kv_resident_attention, f"{c}_launches") for c in COUNTERS}
-        steps = len(summary["step_loss"])
-        say(f"[recipe] trunk before the first step is the converted checkpoint, bitwise: "
-            f"{first == [True]} ({len(converted)} entries)")
-        report_train("recipe", summary, wall, "K3", launches,
-                     launches["fwd_bf16"] > steps and launches["bwd_bf16"] == steps
-                     and launches["fwd"] == launches["bwd"] == 0, steps=4)
-        if first != [True]:
-            raise AssertionError("recipe: the trunk was not the converted checkpoint")
+        launches = {"sinkhorn_score": sinkhorn_scores.launches,
+                    "filter_threshold": filter_threshold.launches}
+        check_metrics("cache-eval", res)
+        say(f"[cache-eval] {label}: run_eval {wall:.3f}s, launches {launches}")
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"cache-eval {label}: K1 or K2 was not launched: {launches}")
+        if (label == "pool") != (pools[-1] is not None):
+            raise AssertionError(f"cache-eval {label}: the pool was used {pools[-1] is not None}")
+        runs.append(res)
+    gaps = {m: max(abs(r[m][t] - runs[0][m][t]) for r in runs for t in runs[0][m])
+            for m in runs[0]}
+    # the model's input from the pool against the host transform's, bitwise
+    pool = next(p for p in pools if p is not None)
+    dataset = build_eval_loaders(from_args(args))["testing"].dataset
+    host = torch.from_numpy(np.stack([dataset[i][1] for i in range(16)])).cuda()
+    dev = PixelNormalizer("cuda")(pool.images[:16].permute(0, 3, 1, 2).float())
+    dev = dev.permute(0, 2, 3, 1)
+    same_input = torch.equal(dev, host)
+    say("[cache-eval] largest metric gaps to the first run (points): "
+        + ", ".join(f"{m} {g:.2e}" for m, g in gaps.items())
+        + f"; the four runs' metrics identical: {all(r == runs[0] for r in runs)}; the pool's "
+        f"normalised input of 16 images equals the host EvalTransform's bitwise: {same_input}")
+    if max(gaps.values()) > METRIC_POINTS or not same_input:
+        raise AssertionError(f"cache-eval: the runs' metrics or inputs disagree: {gaps}")
 
-        run = summary["run_dir"]
-        best = load_checkpoint(os.path.join(run, "best"), map_location="cuda")
-        fresh = models.select("cvt_13_normalize", from_args(train_args)).cuda()
-        fresh.load_state_dict(best["params"])
-        # against the weights the trained model held when `best` was evaluated
-        trained = evaluated.get(best["step"], {})
-        have = fresh.state_dict()
-        loaded = (set(have) == set(trained)
-                  and all(torch.equal(v.cpu(), trained[k]) for k, v in have.items()))
-        say(f"[recipe] best/state.pt (epoch {best['epoch']}, step {best['step']}) loads into a "
-            f"fresh model bitwise equal to the trained model at that evaluation "
-            f"(evaluations at steps {sorted(evaluated)}): {loaded}")
-        if not loaded:
-            raise AssertionError("recipe: best/state.pt did not load bitwise")
 
-        saved = load_checkpoint(os.path.join(run, "latest"))
-        resumed = train_baseline.main(RECIPE_TRAIN_ARGS + src + [
-            "--resume_path", os.path.join(run, "latest"), "--start_epoch", "2",
-            "--n_epochs", "3", "--save_path", os.path.join(work, "resumed")])
-        state = resumed["state"]
-        adam_steps = {float(st["step"]) for st in state.optimizer.state.values()}
-        say(f"[recipe] resumed latest (epoch {saved['epoch']}, step {saved['step']}): restored "
-            f"{resumed['resumed']}, {len(resumed['step_loss'])} more steps to step "
-            f"{state.step}, Adam step counts {sorted(adam_steps)}, losses "
-            + " ".join(f"{x:.6f}" for x in resumed["step_loss"]))
-        if (resumed["resumed"] != (saved["epoch"], saved["step"])
-                or state.step != saved["step"] + len(resumed["step_loss"])
-                or adam_steps != {float(state.step)}
-                or not all(math.isfinite(x) for x in resumed["step_loss"])):
-            raise AssertionError("recipe: the resumed run did not continue the saved state")
+# DeiT-S on the CvT recipe's synthetic set, no precision flag: the card's
+# default (bf16 with the narrowed softmax)
+VIT_TRAIN_ARGS = [a if a != "cvt_13_normalize" else "vit_small_normalize"
+                  for a in TRAIN_BF16_ARGS]
 
-        eval_args = RECIPE_EVAL_ARGS + src + ["--resume_path", os.path.join(run, "best")]
-        runs, walls = [], []
-        for i in range(2):
+
+def phase_vit_train_bf16(torch):
+    """DeiT-S margin training at batch 112 on its card defaults: 3 steps
+    and the in-train evaluation (the precision must resolve to bf16 with
+    the narrowed softmax; no port kernel on this path, ViT attention
+    materialises as in the JAX package), peak memory; the bf16 and f32
+    (--no-bf16) warm steps in turns; one bf16 step on the card against the
+    same step on the CPU at the CPU tests' bf16 bars."""
+    from vit_reranking_tpu_torch.models.vit import ViTNetwork
+    from vit_reranking_tpu_torch.ops.attention import kv_resident_attention
+
+    torch.cuda.reset_peak_memory_stats()
+    summary, launches, wall = run_train(torch, VIT_TRAIN_ARGS, kv_resident_attention)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    model = summary["state"].model
+    resolved = model.dtype == torch.bfloat16 and model.block0.attn.narrow_sm
+    say(f"[vit-train-bf16] resolved to bf16 with the narrowed softmax: {resolved}; peak "
+        f"memory {peak:.2f} GiB")
+    report_train("vit-train-bf16", summary, wall, "K3 (none expected)", launches,
+                 resolved and not any(launches.values()))
+    ab_and_profile(torch, "vit-train-bf16", VIT_TRAIN_ARGS, {"bf16": [], "f32": []},
+                   ("bf16", "f32", "f32", "bf16"), (), (), flags={"f32": F32})
+    base = ViTNetwork(embed_dim=128, generator=torch.Generator().manual_seed(0),
+                      dtype=torch.bfloat16, narrow_sm=True)
+    card_vs_cpu_step(torch, "vit-train-bf16-reference", base,
+                     rtol={"loss": BF16_STEP_LOSS_RTOL, "grad_l2": BF16_STEP_GRAD_RTOL})
+
+
+def phase_eval_bf16(torch):
+    """The CvT evaluation main path with --bf16 (the narrowing off, as the
+    evaluation resolves no default), rollout and featvit, each beside its
+    f32 run, every count set to 0 just before a run and read after it:
+    rollout must run K2 and K1 with no K3 (ret_attn materialises), featvit
+    K3's bf16 forward and K1."""
+    from vit_reranking_tpu_torch.ops.attention import kv_resident_attention
+    from vit_reranking_tpu_torch.ops.rerank import sinkhorn_scores
+    from vit_reranking_tpu_torch.ops.rollout import filter_threshold
+
+    featvit = [a for a in MAIN_ARGS if a != "--use_rollout"]
+    for method, args in (("rollout", MAIN_ARGS), ("featvit", featvit)):
+        results = {}
+        for precision, extra in (("f32", []), ("bf16", ["--bf16"])):
+            for c in COUNTERS:
+                setattr(kv_resident_attention, f"{c}_launches", 0)
             sinkhorn_scores.launches = filter_threshold.launches = 0
-            t0 = time.perf_counter()
-            runs.append(test_diml.run_eval(from_args(eval_args), trunc_nums=(0, 100)))
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-            launches = {"sinkhorn_score": sinkhorn_scores.launches,
-                        "filter_threshold": filter_threshold.launches}
-            check_metrics("recipe", runs[-1])
-            say(f"[recipe] test_diml_cvt from best, run {i + 1}: {walls[-1]:.3f}s, "
-                f"launches {launches}")
-            if min(launches.values()) <= 0:
-                raise AssertionError(f"recipe: K1 or K2 was not launched: {launches}")
-        say(f"[recipe] the two evaluations' metrics identical: {runs[0] == runs[1]}")
-        if runs[0] != runs[1]:
-            raise AssertionError("recipe: two evaluations of best disagree")
-        secs = summary["step_seconds"]
-        say(f"[recipe] step seconds (CUDA events): first {secs[0]:.4f}, warm "
-            + " ".join(f"{x:.4f}" for x in secs[1:]) + f"; eval wall first {walls[0]:.3f}s, "
-            f"warm {walls[1]:.3f}s; loader host s a batch: training {tr_s:.4f}, "
-            f"evaluation {te_s:.4f}")
+            results[precision], wall = run_main_path(torch, args + extra)
+            launches = {"K3 " + c: getattr(kv_resident_attention, f"{c}_launches")
+                        for c in COUNTERS}
+            launches.update(sinkhorn_score=sinkhorn_scores.launches,
+                            filter_threshold=filter_threshold.launches)
+            check_metrics(f"eval-bf16 {method} {precision}", results[precision])
+            say(f"[eval-bf16] {method} {precision}: run_eval {wall:.3f}s, launches {launches}")
+            if precision == "bf16":
+                want_k3 = launches["K3 fwd_bf16"] > 0 if method == "featvit" else \
+                    launches["K3 fwd_bf16"] == 0
+                if not (want_k3 and launches["sinkhorn_score"] > 0
+                        and (method == "featvit" or launches["filter_threshold"] > 0)
+                        and launches["K3 fwd"] == 0):
+                    raise AssertionError(f"eval-bf16 {method}: launches {launches}")
+        say(f"[eval-bf16] {method} bf16 - f32 (points): " + ", ".join(
+            f"{m}@{t} {results['bf16'][m][t] - results['f32'][m][t]:+.4f}"
+            for m in results["f32"] for t in results["f32"][m]))
 
 
 def phase_swin_recipe(torch):
@@ -2127,8 +2385,13 @@ def main():
     phase_vit(torch, "vit-featvit", VIT_ARGS)
     phase_vit_profile(torch)
     phase_vit_reference(torch)
-    phase_recipe(torch)
+    with recipe_tree(torch) as tree:
+        loader_s = phase_recipe(torch, *tree)
+        cache_best = phase_cache_train(torch, *tree[:3], loader_s)
+        phase_cache_eval(torch, tree[1], cache_best)
     phase_swin_recipe(torch)
+    phase_vit_train_bf16(torch)
+    phase_eval_bf16(torch)
     kernels = [
         dict(name="sinkhorn_score", route="cuda",
              source="vit_reranking_tpu_torch/csrc/sinkhorn_score.cu",

@@ -457,13 +457,6 @@ def test_precision_explicit_flags_win(flags, want):
     assert (opt.bf16, opt.narrow_sm) == want
 
 
-@pytest.mark.parametrize("arch", ["vit_normalize", "deit_small_normalize"])
-def test_select_refuses_bf16_vit(arch):
-    opt = resolve_precision(Config(arch=arch, device="cuda", embed_dim=16))
-    with pytest.raises(NotImplementedError, match="--no-bf16"):
-        models.select(arch, opt)
-    m = models.select(arch, opt.replace(bf16=False, narrow_sm=False), img_size=32)
-    assert all(p.dtype == torch.float32 for p in m.parameters())
 
 
 def test_select_passes_the_precision():

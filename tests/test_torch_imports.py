@@ -44,7 +44,8 @@ def test_port_files_found():
     for module in ("ops/attention", "engine/train", "losses/margin", "miners/distance",
                    "data/samplers", "core/checkpoint", "core/logger", "cli/train_baseline",
                    "models/swin", "ops/swin_attention", "models/vit", "cli/test_diml_vit",
-                   "data/transforms", "data/datasets", "core/convert", "cli/test_diml_swin"):
+                   "data/transforms", "data/datasets", "core/convert", "cli/test_diml_swin",
+                   "data/device_cache"):
         assert f"vit_reranking_tpu_torch/{module}.py" in names
 
 

@@ -399,15 +399,13 @@ def test_train_baseline_main_on_cpu(monkeypatch, tmp_path):
     assert len((run / "log_train.csv").read_text().splitlines()) == 3
 
 
-@pytest.mark.parametrize("flag", [["--cache_device"], ["--mesh_shape", "1,1"]])
+@pytest.mark.parametrize("flag", [["--mesh_shape", "1,1"]])
 def test_train_baseline_refuses_unported_options(tmp_path, flag):
     with pytest.raises(NotImplementedError):
         train_baseline.main(["--device", "cpu", "--save_path", str(tmp_path)] + flag)
 
 
-@pytest.mark.parametrize("flag", [["--bf16"], ["--narrow_sm"],
-                                  ["--cache_device"], ["--mesh_shape", "1,1"]],
-                         ids=lambda f: f[0].lstrip("-"))
+@pytest.mark.parametrize("flag", [["--mesh_shape", "1,1"]], ids=lambda f: f[0].lstrip("-"))
 def test_eval_refuses_unported_options(tmp_path, monkeypatch, flag):
     """The evaluation CLI refuses, before it builds anything, every option
     whose effect the port lacks, rather than run without it and write that

@@ -2,8 +2,8 @@
 Config, and the per-batch train step.
 
 Port of vit_reranking_tpu/cli/common.py for one card, with pretrained
-init, resuming and step checkpoints: the mesh and the device-resident image
-cache come later.
+init, resuming, step checkpoints and the device-resident image pools: the
+mesh comes later.
 """
 
 from __future__ import annotations
@@ -20,24 +20,19 @@ from .. import models as archs
 from ..core import convert
 from ..core.checkpoint import load_checkpoint, save_checkpoint
 from ..core.config import Config
-from ..engine.train import TrainState, init_train_state, make_optimizer, train_step
+from ..data.device_cache import DeviceImageCache
+from ..engine.train import (TrainState, cached_train_step, init_train_state, make_optimizer,
+                            train_step)
 
 
 # JAX package options the port does not have yet: setting one raises
-UNPORTED = ("cache_device", "mesh_shape")
+UNPORTED = ("mesh_shape",)
 
 
-def refuse_unported(opt: Config, what: str, reduced_precision: bool = False) -> None:
-    """Raise ``NotImplementedError`` naming the first option of ``opt`` whose
-    effect the port lacks (the device image cache, meshes; bf16 and the
-    narrowed softmax unless ``reduced_precision``, which training has and
-    evaluation does not),
-    rather than parse it and run without it.  ``what`` says what the CLI
-    does in f32 ("evaluates")."""
-    for flag in () if reduced_precision else ("bf16", "narrow_sm"):
-        if getattr(opt, flag):
-            raise NotImplementedError(
-                f"--{flag} is not ported yet: the port {what} in f32")
+def refuse_unported(opt: Config) -> None:
+    """Raise ``NotImplementedError`` naming the first option of ``opt``
+    whose effect the port lacks (meshes), rather than parse it and run
+    without it."""
     for flag in UNPORTED:
         if getattr(opt, flag):
             raise NotImplementedError(f"--{flag} is not ported yet")
@@ -137,13 +132,15 @@ def resume_train_state(path: str, state: TrainState) -> int:
     return int(ckpt.get("epoch", 0))
 
 
-def build_training(opt: Config, steps_per_epoch: int, device: torch.device):
-    """Assemble ``(model, criterion, state)`` on ``device``: the model
-    randomly initialised from a generator seeded with ``opt.seed``, then
+def build_training(opt: Config, steps_per_epoch: int, device: torch.device,
+                   img_size: int = 224):
+    """Assemble ``(model, criterion, state)`` on ``device``: the model for
+    ``img_size`` px inputs (the ViT's position embedding), randomly
+    initialised from a generator seeded with ``opt.seed``, then
     ``--pretrained_ckpt`` converted into it, the criterion with its miner,
     and an optimizer whose groups follow :func:`build_labels`."""
     model = archs.select(
-        opt.arch, opt, generator=torch.Generator().manual_seed(opt.seed)
+        opt.arch, opt, generator=torch.Generator().manual_seed(opt.seed), img_size=img_size
     )
     model = load_pretrained_into(opt, model).to(device)
     miner = (
@@ -161,15 +158,51 @@ def build_training(opt: Config, steps_per_epoch: int, device: torch.device):
     return model, criterion, state
 
 
-def run_train_step(state: TrainState, lab: np.ndarray, images: np.ndarray,
-                   generator: Optional[torch.Generator], device: torch.device):
-    """Move one host batch to ``device`` (images to NCHW) and take a step.
-    On a card the batch goes through pinned memory, so the copy waits for
-    nothing the card is still doing."""
-    x = torch.from_numpy(np.ascontiguousarray(images))
-    y = torch.from_numpy(np.asarray(lab))
+def setup_pool(opt: Config, pool_cls, dataset, device: torch.device, tag: str):
+    """``pool_cls``'s pool of ``dataset`` on ``device`` under
+    ``--cache_device`` (data/device_cache.py: ``DeviceImageCache`` for the
+    training split, ``DeviceEvalCache`` for the test split;
+    vit_reranking_tpu/cli/common.py:115-139), else None; its size is
+    printed.  A pool the card cannot hold raises the card's out-of-memory
+    error: nothing falls back to the host loader."""
+    if not opt.cache_device:
+        return None
+    pool = pool_cls.from_dataset(dataset, device, workers=opt.kernels)
+    print(f"[{tag}] {pool.kind}: {tuple(pool.images.shape)} {pool.images.dtype} "
+          f"({pool.nbytes / 1e9:.2f} GB resident)")
+    return pool
+
+
+def epoch_batches(train_loader, cache: Optional[DeviceImageCache]):
+    """An epoch's (labels, images, indices) batches: the loader's, or, with
+    a device pool, the sampler's indices and their labels with no image
+    (vit_reranking_tpu/cli/common.py:142-153)."""
+    if cache is None:
+        yield from train_loader
+        return
+    image_list = train_loader.dataset.image_list
+    for bidx in train_loader.iter_index_batches():
+        yield (np.asarray([image_list[i][1] for i in bidx], np.int32), None,
+               np.asarray(bidx, np.int32))
+
+
+def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``; on a card through pinned memory, so the
+    copy waits for nothing the card is still doing."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
     if torch.device(device).type == "cuda":
-        x, y = x.pin_memory(), y.pin_memory()
-    x = x.to(device, non_blocking=True).permute(0, 3, 1, 2)
-    y = y.to(device, non_blocking=True).long()
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+
+
+def run_train_step(state: TrainState, lab: np.ndarray, images: Optional[np.ndarray],
+                   generator: Optional[torch.Generator], device: torch.device,
+                   cache: Optional[DeviceImageCache] = None, idx: Optional[np.ndarray] = None):
+    """Take one step: on a host batch moved to ``device`` (images to NCHW),
+    or, with ``cache``, on the pool's rows ``idx``, gathered and augmented
+    on the device (only the indices and labels cross from the host)."""
+    y = _to_device(np.asarray(lab), device).long()
+    if cache is not None:
+        return cached_train_step(state, cache, _to_device(idx, device).long(), y, generator)
+    x = _to_device(images, device).permute(0, 3, 1, 2)
     return train_step(state, x.contiguous(), y, generator)

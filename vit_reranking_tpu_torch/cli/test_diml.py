@@ -15,10 +15,14 @@ The model is randomly initialised from a ``torch.Generator`` seeded with
 reference's backbone) is converted into it, and ``--resume_path`` (a run's
 ``best`` or ``latest`` directory) replaces its weights with the trained
 ones.  ``--sweep RUNS_ROOT`` evaluates every run under a root and writes
-one row a run to ``test_results/sweep_{dataset}.csv``.  Feature caching
-(``--cache_path``) and ``--bf16``, ``--narrow_sm``, ``--cache_device`` and
-``--mesh_shape`` wait for later slices; those four options raise.  Tensors
-live on ``--device`` (``cuda`` unless told otherwise).
+one row a run to ``test_results/sweep_{dataset}.csv``.  ``--bf16`` builds
+the model with bf16 activations and ``--narrow_sm`` narrows its softmax, as
+given (both off unless set: the evaluation resolves no default, as the JAX
+evaluation); ``--cache_device`` loads the test split once into the card's
+memory and embeds it there (vit_reranking_tpu/cli/test_diml.py:116-131).
+Feature caching (``--cache_path``) waits for a later slice, and
+``--mesh_shape`` raises.  Tensors live on ``--device`` (``cuda`` unless
+told otherwise).
 
     python -m vit_reranking_tpu_torch.cli.test_diml_cvt --dataset cub200 \
         --source_path data --arch cvt_13_normalize --resume_path RUN/best \
@@ -39,10 +43,11 @@ import torch
 from .. import models as archs
 from ..core.checkpoint import load_checkpoint
 from ..core.config import Config, from_args
+from ..data.device_cache import DeviceEvalCache
 from ..data.loader import build_eval_loaders
-from ..engine.extract import extract_features
+from ..engine.extract import embed_split
 from ..engine.rerank_eval import rerank_evaluate
-from .common import load_pretrained_into, refuse_unported
+from .common import load_pretrained_into, refuse_unported, setup_pool
 
 
 def _sync(device: torch.device) -> None:
@@ -54,12 +59,14 @@ def run_eval(opt: Config, trunc_nums=(0, 100)):
     """Evaluate ``opt``'s model at each truncation of ``trunc_nums`` below
     the test split's size; returns ``{"r1", "rp", "mapr"}``, each truncation
     -> percent."""
-    refuse_unported(opt, "evaluates")
+    refuse_unported(opt)
     device = torch.device(opt.device)
     # f32 products and convolutions in full f32, as the JAX package pins
-    # Precision.HIGHEST on its parity-critical contractions
+    # Precision.HIGHEST on its parity-critical contractions; bf16 products
+    # accumulate in f32, as the JAX package's do
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     test_loader = build_eval_loaders(opt)["testing"]
     # the model is sized from the first batch, as the JAX package inits it
@@ -77,10 +84,10 @@ def run_eval(opt: Config, trunc_nums=(0, 100)):
     # --use_dist yet)
     method = "rollout" if opt.use_rollout else "qk" if opt.use_qk else "featvit"
     t0 = time.perf_counter()
-    feats = extract_features(
-        model, test_loader, grid_size=opt.grid_size, use_rollout=method == "rollout",
-        device=opt.device, use_qk=method == "qk",
-    )
+    pool = setup_pool(opt, DeviceEvalCache, test_loader.dataset, device, "test_diml")
+    feats = embed_split(model, test_loader, pool, grid_size=opt.grid_size,
+                        use_rollout=method == "rollout", use_qk=method == "qk",
+                        device=opt.device)
     _sync(device)
     t_extract = time.perf_counter() - t0
     n = len(feats["labels"])

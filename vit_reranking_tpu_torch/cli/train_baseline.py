@@ -13,8 +13,10 @@ refresh ``latest`` between evaluations.  The precision is the JAX package's
 default: on the card, CvT and Swin train with bf16 activations and the
 narrowed softmax (f32 parameters, BatchNorm statistics, Adam state,
 LayerNorms and head); ``--no-bf16`` trains in f32, as every run on the CPU
-does (``core/config.py::resolve_precision``).  Options the port does not
-have yet (the device image cache, meshes) raise.
+does (``core/config.py::resolve_precision``).  ``--cache_device`` loads the
+training and test splits once into the card's memory: each step gathers and
+augments its batch there, each evaluation embeds from the pool
+(data/device_cache.py).  Meshes (``--mesh_shape``) raise.
 
     python -m vit_reranking_tpu_torch.cli.train_baseline --dataset cub200 \
         --source_path data --arch cvt_13_normalize --loss margin \
@@ -33,19 +35,22 @@ import torch
 from ..core.checkpoint import copy_best, save_checkpoint
 from ..core.config import from_args, resolve_precision
 from ..core.logger import RunLogger
+from ..data.device_cache import DeviceEvalCache, DeviceImageCache
 from ..data.loader import build_dataset
-from ..engine.extract import extract_features
+from ..engine.extract import embed_split
 from ..engine.metrics import metrics_from_scores, summarize
 from ..ops.topk import similarity_matrix
-from .common import (build_training, maybe_step_checkpoint, refuse_unported,
-                     resume_train_state, run_train_step, seed_everything,
+from .common import (build_training, epoch_batches, maybe_step_checkpoint, refuse_unported,
+                     resume_train_state, run_train_step, seed_everything, setup_pool,
                      train_checkpoint)
 
 
-def evaluate_plain(model, loader, device) -> Dict[str, float]:
+def evaluate_plain(model, loader, device, eval_cache=None) -> Dict[str, float]:
     """In-train eval (train_baseline.py:247-326): embed, N x N cosine with
-    the diagonal masked, metrics in percent."""
-    feats = extract_features(model, loader, grid_size=1, device=device)
+    the diagonal masked, metrics in percent.  With ``eval_cache``
+    (data/device_cache.py::DeviceEvalCache) the embedding runs over the
+    resident test pool in the loader's batch size."""
+    feats = embed_split(model, loader, eval_cache, grid_size=1, device=device)
     centers, labels = feats["center"], feats["labels"]
     sims = similarity_matrix(centers, centers, mask_self=True)
     return summarize(metrics_from_scores(sims, labels, labels, mask_diagonal=False))
@@ -94,7 +99,7 @@ def main(argv=None) -> Dict[str, object]:
     Losses stay on the device until the epoch ends, as in the JAX package:
     no step waits for the host."""
     opt = resolve_precision(from_args(argv))
-    refuse_unported(opt, "trains", reduced_precision=True)
+    refuse_unported(opt)
     device = torch.device(opt.device)
     # f32 products and convolutions in full f32, as the JAX package pins
     # Precision.HIGHEST on its parity-critical contractions; bf16 products
@@ -110,7 +115,14 @@ def main(argv=None) -> Dict[str, object]:
     loaders, _ = build_dataset(opt)
     train_loader = loaders["training"]
     steps_per_epoch = len(train_loader)
-    model, _, state = build_training(opt, steps_per_epoch, device)
+    cache = setup_pool(opt, DeviceImageCache, train_loader.dataset, device, "train_baseline")
+    eval_cache = setup_pool(opt, DeviceEvalCache, loaders["testing"].dataset, device,
+                            "train_baseline")
+    # the model is sized from the first test batch, as the JAX package inits it
+    batches = iter(loaders["testing"])
+    _, images0, _ = next(batches)
+    batches.close()
+    model, _, state = build_training(opt, steps_per_epoch, device, img_size=images0.shape[1])
     logger = RunLogger(opt)
     print(f"[train_baseline] run dir: {logger.run_dir}")
     resumed = None
@@ -119,7 +131,8 @@ def main(argv=None) -> Dict[str, object]:
         print(f"[train_baseline] resumed {opt.resume_path} (epoch {resumed[0]}, "
               f"step {resumed[1]})")
 
-    # the miner's draws (the JAX package's PRNGKey(seed + 1) stream)
+    # the miner's draws and the pool's augmentation (the JAX package's
+    # PRNGKey(seed + 1) stream)
     generator = torch.Generator(device=device).manual_seed(opt.seed + 1)
     summary = {"best_r1": -1.0, "step_loss": [], "step_seconds": [], "eval": [],
                "run_dir": logger.run_dir, "resumed": resumed, "state": state}
@@ -128,9 +141,9 @@ def main(argv=None) -> Dict[str, object]:
     for epoch in range(opt.start_epoch, opt.n_epochs):
         t0 = time.time()
         epoch_losses = []
-        for lab, images, _ in train_loader:
+        for lab, images, idx in epoch_batches(train_loader, cache):
             begun = clock.start()
-            m = run_train_step(state, lab, images, generator, device)
+            m = run_train_step(state, lab, images, generator, device, cache, idx)
             clock.stop(begun)
             epoch_losses.append(m["loss"])
             step += 1
@@ -162,7 +175,7 @@ def main(argv=None) -> Dict[str, object]:
 
         if epoch % opt.evalevery == 0 or epoch == opt.n_epochs - 1:
             te = time.time()
-            metrics = evaluate_plain(model, loaders["testing"], device)
+            metrics = evaluate_plain(model, loaders["testing"], device, eval_cache)
             _sync(device)
             summary["eval"].append(metrics)
             logger.log("Test", metrics, epoch)

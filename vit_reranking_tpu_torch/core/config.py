@@ -89,7 +89,8 @@ class Config:
     # Tri-state as in the JAX package: None takes the training CLI's default,
     # resolve_precision (on the card, bf16 for the arches the JAX package
     # trains in bf16 on its accelerator; f32 on the CPU); narrow_sm follows
-    # bf16.  The evaluation CLI refuses both.
+    # bf16.  The evaluation CLI reads both as they are given (None is off),
+    # as the JAX evaluation does.
     bf16: Optional[bool] = None
     narrow_sm: Optional[bool] = None
     # refresh `latest` between evaluations: at the end of every epoch, and
@@ -99,8 +100,11 @@ class Config:
     # a torch checkpoint of the reference's backbone (ImageNet weights),
     # converted into the model at init (core/convert.py)
     pretrained_ckpt: Optional[str] = None
-    # JAX package options the port does not have yet: setting one raises
+    # the device-resident image pools (data/device_cache.py): training
+    # gathers and augments its batches on the card, evaluation embeds from
+    # the pool
     cache_device: bool = False
+    # a JAX package option the port does not have yet: setting it raises
     mesh_shape: Optional[str] = None
     # ---- port addition: where tensors live ("cuda" or "cpu")
     device: str = "cuda"

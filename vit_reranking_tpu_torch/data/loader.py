@@ -30,7 +30,10 @@ class DataLoader:
         self.batch_sampler = batch_sampler
         self.num_workers = max(1, num_workers)
 
-    def _index_batches(self) -> Iterator[List[int]]:
+    def iter_index_batches(self) -> Iterator[List[int]]:
+        """The index batches alone, no image loaded: the device-resident
+        pool's input pipeline (data/device_cache.py) sends each step only
+        its indices and labels."""
         if self.batch_sampler is not None:
             yield from self.batch_sampler
             return
@@ -52,7 +55,7 @@ class DataLoader:
             return labels, images, idxs
 
         with cf.ThreadPoolExecutor(self.num_workers) as pool:
-            it = self._index_batches()
+            it = self.iter_index_batches()
             pending = [pool.submit(fetch, b) for b in itertools.islice(it, PREFETCH)]
             for batch_idx in it:
                 done = pending.pop(0)

@@ -9,8 +9,10 @@ eval_cvt_diml.py:225-305): run the model over the eval loader, collect
   * the q/k projections (N, heads, T+1, hd) of the ViT's probed block for
     the qk method (eval_attn_diml.py:18-38)
 then L2-normalize the bank and centers over the channel axis
-(eval_cvt_diml.py:304-305).  The device-resident whole-dataset variant
-waits for a later slice.
+(eval_cvt_diml.py:304-305).  ``extract_features_device`` does the same over
+a pool resident on the device (data/device_cache.py::DeviceEvalCache):
+``--cache_device``, no image crosses from the host; ``embed_split`` takes
+whichever of the two a split has.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..data.device_cache import PixelNormalizer
 from ..ops.pooling import grid_resize_tokens
 from ..ops.rollout import rollout_saliency
 from ..ops.similarity import l2_normalize
@@ -55,7 +58,8 @@ def extract_features(
     """Run ``model`` (in evaluation mode, on ``device``) over a loader of
     (labels, NHWC images, indices) batches; returns tensors on ``device``
     {'bank' (N,C,R), 'center' (N,C), 'labels' (N,), 'rollout' (N,R)?,
-    'q'/'k' (N,heads,T+1,hd)?}.
+    'q'/'k' (N,heads,T+1,hd)?}, q and k in the model's compute dtype (bf16
+    from a bf16 model, as the JAX package keeps them), the others f32.
 
     The outputs stay on ``device`` and are normalized there, so the rerank
     that follows reads them with no round trip through the host."""
@@ -66,7 +70,7 @@ def extract_features(
         x = torch.from_numpy(np.ascontiguousarray(images)).to(device).permute(0, 3, 1, 2).contiguous()
         res = embed_batch(model, x, grid_size, use_rollout, use_qk)
         for k, v in res.items():
-            parts[k].append(v.float())
+            parts[k].append(v)
         labels.append(np.asarray(lab))
     out = {
         "bank": l2_normalize(torch.cat(parts["bank"]), dim=1),
@@ -77,3 +81,54 @@ def extract_features(
         if parts[name]:
             out[name] = torch.cat(parts[name])
     return out
+
+
+def extract_features_device(
+    model,
+    images: torch.Tensor,
+    batch_size: int = 32,
+    grid_size: int = 7,
+    use_rollout: bool = False,
+    use_qk: bool = False,
+    uint8_input: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """:func:`extract_features` over a pool resident on its device,
+    (N, H, W, 3), uint8 pixels normalized a batch at a time
+    (``uint8_input``) or final float values; returns tensors on the pool's
+    device {'bank', 'center', 'rollout'?, 'q'?, 'k'?} (the caller has the
+    labels).  The pool is embedded in whole batches gathered from it, the
+    tail batch wrap-padded from the pool's start and cropped off the
+    outputs, as the JAX package's extract_features_device.  The JAX package
+    also cuts the pool into chunks by free memory, because XLA keeps a
+    layout copy of the whole image operand inside its one compiled loop;
+    here each batch is gathered on its own, so no chunk bounds memory."""
+    model.eval()
+    n = images.shape[0]
+    rows = torch.arange(n + (-n) % batch_size, device=images.device) % n
+    pixels = PixelNormalizer(images.device) if uint8_input else None
+    parts: Dict[str, list] = {}
+    for s in range(0, rows.numel(), batch_size):
+        x = images.index_select(0, rows[s:s + batch_size]).permute(0, 3, 1, 2).float()
+        if pixels is not None:
+            x = pixels(x)
+        res = embed_batch(model, x.contiguous(), grid_size, use_rollout, use_qk)
+        for k, v in res.items():
+            parts.setdefault(k, []).append(v)
+    out = {k: torch.cat(v)[:n] for k, v in parts.items()}
+    out["bank"] = l2_normalize(out["bank"], dim=1)
+    out["center"] = l2_normalize(out["center"], dim=1)
+    return out
+
+
+def embed_split(model, loader, pool=None, grid_size: int = 7, use_rollout: bool = False,
+                use_qk: bool = False, device: str = "cuda") -> Dict[str, torch.Tensor]:
+    """A split's features and labels, as :func:`extract_features` returns
+    them: over the resident ``pool`` (data/device_cache.py::DeviceEvalCache,
+    ``--cache_device``) in the loader's batch size when one is given, else
+    over ``loader``."""
+    if pool is None:
+        return extract_features(model, loader, grid_size, use_rollout, device, use_qk)
+    feats = extract_features_device(model, pool.images, loader.batch_size, grid_size,
+                                    use_rollout, use_qk, uint8_input=not pool.normalized)
+    feats["labels"] = pool.labels
+    return feats

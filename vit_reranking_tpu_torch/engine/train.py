@@ -2,7 +2,8 @@
 rates, and the multistep schedule.
 
 Port of vit_reranking_tpu/engine/train.py (reference train_baseline.py:
-166-337) for one card: no mesh and no device-resident image cache.  The
+166-337) for one card (no mesh), with the step that gathers its batch from
+the device-resident image pool (``cached_train_step``).  The
 JAX package's pure ``TrainState`` becomes a holder of the model, the
 criterion (whose parameters are the loss's learnable state), the optimizer
 and the step count, updated in place.
@@ -108,3 +109,15 @@ def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
     optimizer.step()
     state.step += 1
     return {"loss": loss.detach(), "grad_l2": grad_l2, "grad_max": grad_max}
+
+
+def cached_train_step(state: TrainState, cache, idx: torch.Tensor, labels: torch.Tensor,
+                      generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """:func:`train_step` on a batch gathered from the device-resident pool
+    ``cache`` (data/device_cache.py::DeviceImageCache) at ``idx`` and
+    augmented on its device (vit_reranking_tpu/engine/train.py:168-172).
+    The augmentation is drawn from ``generator`` before the miner draws from
+    it, as the JAX step splits its key.  Nothing here waits for the
+    device."""
+    return train_step(state, cache.augment(cache.images.index_select(0, idx), generator),
+                      labels, generator)

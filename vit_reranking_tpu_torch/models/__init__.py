@@ -25,20 +25,16 @@ def select(arch: str, opt, generator: Optional[torch.Generator] = None, img_size
     input.
 
     ``opt.bf16`` picks the activation compute dtype (bf16 or f32) and
-    ``opt.narrow_sm`` the narrowed softmax, for CvT and Swin as the JAX
-    package passes them (models/__init__.py:37, :87, :104); the ViT/DeiT
-    has no bf16 form in the port yet, and raises for ``opt.bf16``."""
+    ``opt.narrow_sm`` the narrowed softmax, for CvT, Swin and ViT/DeiT as
+    the JAX package passes them (models/__init__.py:37, :87, :104)."""
     a = arch.lower()
     bf16 = bool(getattr(opt, "bf16", False))
     dtype = torch.bfloat16 if bf16 else torch.float32
     narrow_sm = bool(getattr(opt, "narrow_sm", False))
     if a.startswith("vit") or a.startswith("deit"):
-        if bf16:
-            raise NotImplementedError(
-                f"--bf16 is not ported for {arch}: the port's ViT/DeiT computes in f32; "
-                "pass --no-bf16 to train it in f32")
         return ViTNetwork(embed_dim=opt.embed_dim, normalize="normalize" in a,
-                          qk_block=opt.blk_ind, img_size=img_size, generator=generator)
+                          qk_block=opt.blk_ind, img_size=img_size, generator=generator,
+                          narrow_sm=narrow_sm, dtype=dtype)
     if "swin" in a:
         # full Swin-T runs only at sizes where every stage's resolution is a
         # multiple of the window (224 px and up), so its bias tables never

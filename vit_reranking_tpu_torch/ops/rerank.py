@@ -423,10 +423,11 @@ def fused_qk_rerank_scores(
     K = top_inds.shape[1]
     eps = 1e-5
     feature_bank = feature_bank.float()
-    # per-image head mean and L2 norm, once; then the cls token and the
-    # patch tokens apart, so each tile builds its cost contiguous
-    q_mean = l2_normalize(q_bank.float().mean(dim=1))  # (N, R+1, D)
-    k_mean = l2_normalize(k_bank.float().mean(dim=1))
+    # per-image head mean and L2 norm, once, in the banks' dtype (bf16 from
+    # a bf16 model, as the JAX package's); then the cls token and the patch
+    # tokens apart, so each tile builds its cost contiguous
+    q_mean = l2_normalize(q_bank.mean(dim=1)).float()  # (N, R+1, D)
+    k_mean = l2_normalize(k_bank.mean(dim=1)).float()
     q_cls, q_patch = q_mean[:, 0], q_mean[:, 1:].contiguous()
     k_cls, k_patch = k_mean[:, 0], k_mean[:, 1:].contiguous()
     out = []

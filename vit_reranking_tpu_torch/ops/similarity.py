@@ -41,8 +41,15 @@ class OTAux(NamedTuple):
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
-    """torch.nn.functional.normalize semantics: x / max(||x||, eps)."""
-    norm = torch.linalg.vector_norm(x, dim=dim, keepdim=True)
+    """torch.nn.functional.normalize semantics: x / max(||x||, eps).  A
+    bf16 ``x`` (a bf16 model's q/k) has its squares summed in f32 and the
+    sum rounded to bf16 before the square root, as the JAX package's
+    ``jnp.linalg.norm`` computes it."""
+    if x.dtype == torch.bfloat16:
+        xf = x.float()
+        norm = torch.sqrt(torch.sum(xf * xf, dim=dim, keepdim=True).to(x.dtype))
+    else:
+        norm = torch.linalg.vector_norm(x, dim=dim, keepdim=True)
     return x / torch.clamp(norm, min=eps)
 
 
@@ -197,8 +204,9 @@ def calc_similarity_qk(
 
     *lead, N, _, R = fb.shape
     S = patch_similarity(anchor.float(), fb.float())
-    q = l2_normalize(torch.mean(anchor_q.float(), dim=-3))  # (..., R+1, D)
-    k = l2_normalize(torch.mean(fb_k.float(), dim=-3))  # (..., N, R+1, D)
+    # head mean and L2 norm in the banks' dtype, as the JAX package's
+    q = l2_normalize(torch.mean(anchor_q, dim=-3)).float()  # (..., R+1, D)
+    k = l2_normalize(torch.mean(fb_k, dim=-3)).float()  # (..., N, R+1, D)
     # dp[..., n, s, m] = k[n, s] . q[m] * scale  ('mc,nsc->nsm')
     dp = torch.matmul(k, q.unsqueeze(-3).transpose(-1, -2)) * scale
     dp_patch = dp[..., 1:, 1:]
