@@ -155,7 +155,7 @@ def test_audits_fail_by_name_on_the_same_corruptions(family):
 
 
 def test_convert_for_arch_refuses_families_without_a_model():
-    for arch in ("resnet50_frozen_normalize", "densenet169_normalize", "patchnetvlad"):
+    for arch in ("irresnet50", "densenet169_normalize", "patchnetvlad"):
         with pytest.raises(NotImplementedError, match=arch):
             convert.convert_for_arch(arch, {})
 

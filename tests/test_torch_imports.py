@@ -45,7 +45,8 @@ def test_port_files_found():
                    "data/samplers", "core/checkpoint", "core/logger", "cli/train_baseline",
                    "models/swin", "ops/swin_attention", "models/vit", "cli/test_diml_vit",
                    "data/transforms", "data/datasets", "core/convert", "cli/test_diml_swin",
-                   "data/device_cache"):
+                   "data/device_cache", "models/resnet", "losses/diml_ot", "losses/margin_diml",
+                   "cli/train_diml", "cli/test_diml_base"):
         assert f"vit_reranking_tpu_torch/{module}.py" in names
 
 

@@ -138,7 +138,9 @@ def build_training(opt: Config, steps_per_epoch: int, device: torch.device,
     ``img_size`` px inputs (the ViT's position embedding), randomly
     initialised from a generator seeded with ``opt.seed``, then
     ``--pretrained_ckpt`` converted into it, the criterion with its miner,
-    and an optimizer whose groups follow :func:`build_labels`."""
+    and an optimizer whose groups follow :func:`build_labels`; the state
+    passes the model's ``enc_out`` to a structural loss as its
+    ``class_token`` under ``--use_cls_token``."""
     model = archs.select(
         opt.arch, opt, generator=torch.Generator().manual_seed(opt.seed), img_size=img_size
     )
@@ -154,7 +156,10 @@ def build_training(opt: Config, steps_per_epoch: int, device: torch.device,
     group_lrs = {"model": opt.lr, "fc": opt.fc_lr, "frozen": 0.0,
                  "criterion": getattr(criterion, "lr", None) or opt.lr}
     optimizer = make_optimizer(opt.optim, opt.decay, groups, group_lrs)
-    state = init_train_state(model, criterion, optimizer, opt.tau, opt.gamma, steps_per_epoch)
+    # the structural losses read the cls embedding (JAX cli/common.py:107)
+    pass_cls = opt.loss in ("margin_diml", "multisimilarity_diml") and opt.use_cls_token
+    state = init_train_state(model, criterion, optimizer, opt.tau, opt.gamma, steps_per_epoch,
+                             pass_class_token=pass_cls)
     return model, criterion, state
 
 

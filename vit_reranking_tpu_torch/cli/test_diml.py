@@ -20,6 +20,8 @@ the model with bf16 activations and ``--narrow_sm`` narrows its softmax, as
 given (both off unless set: the evaluation resolves no default, as the JAX
 evaluation); ``--cache_device`` loads the test split once into the card's
 memory and embeds it there (vit_reranking_tpu/cli/test_diml.py:116-131).
+``--training`` evaluates a DIML model: its per-patch output is the bank
+and its ``enc_out`` the center (test_diml.py:127, :138).
 Feature caching (``--cache_path``) waits for a later slice, and
 ``--mesh_shape`` raises.  Tensors live on ``--device`` (``cuda`` unless
 told otherwise).
@@ -87,7 +89,7 @@ def run_eval(opt: Config, trunc_nums=(0, 100)):
     pool = setup_pool(opt, DeviceEvalCache, test_loader.dataset, device, "test_diml")
     feats = embed_split(model, test_loader, pool, grid_size=opt.grid_size,
                         use_rollout=method == "rollout", use_qk=method == "qk",
-                        device=opt.device)
+                        device=opt.device, training_mode=opt.training)
     _sync(device)
     t_extract = time.perf_counter() - t0
     n = len(feats["labels"])

@@ -4,7 +4,8 @@ Port of vit_reranking_tpu/cli/train_baseline.py for one card: the same
 flags and loop shape (per-epoch training with mining and loss, eval every
 ``--evalevery`` epochs: test-set embedding -> N x N cosine with
 self-masking -> R@1 / RP / MAP@R, best-checkpoint copy on R@1, patience
-early stop).  The model is randomly initialised from ``--seed``, then
+early stop; :func:`train`, which cli/train_diml.py shares).  The model is
+randomly initialised from ``--seed``, then
 ``--pretrained_ckpt`` (the reference's torch checkpoint of the backbone) is
 converted into it.  ``--resume_path`` restores a run's checkpoint (model,
 loss, optimizer and step count; the loop still starts at
@@ -27,7 +28,7 @@ augments its batch there, each evaluation embeds from the pool
 from __future__ import annotations
 
 import time
-from typing import Dict
+from typing import Callable, Dict
 
 import numpy as np
 import torch
@@ -90,15 +91,18 @@ class _StepClock:
         return secs
 
 
-def main(argv=None) -> Dict[str, object]:
-    """Train; returns ``{"best_r1", "step_loss", "step_seconds", "eval",
-    "run_dir", "resumed", "state"}``: every step's loss and seconds (from the
-    batch's copy to the card to the end of the optimizer update), each
+def train(opt, tag: str, evaluate: Callable) -> Dict[str, object]:
+    """The training loop both training CLIs share, on ``opt`` with its
+    precision resolved: pools, model, criterion and optimizer, resume, the
+    epochs with step checkpoints, and every ``--evalevery`` epochs
+    ``evaluate(model, test_loader, device, eval_cache)`` (a metrics dict
+    with ``r1``), the ``latest`` / ``best`` checkpoints and the patience
+    stop.  Returns ``{"best_r1", "step_loss", "step_seconds", "eval",
+    "run_dir", "resumed", "state"}``: every step's loss and seconds (from
+    the batch's copy to the card to the end of the optimizer update), each
     evaluation's metrics, the ``(epoch, step)`` a resumed run restored (else
-    None) and the final ``TrainState``.
-    Losses stay on the device until the epoch ends, as in the JAX package:
-    no step waits for the host."""
-    opt = resolve_precision(from_args(argv))
+    None) and the final ``TrainState``.  Losses stay on the device until the
+    epoch ends, as in the JAX package: no step waits for the host."""
     refuse_unported(opt)
     device = torch.device(opt.device)
     # f32 products and convolutions in full f32, as the JAX package pins
@@ -107,7 +111,7 @@ def main(argv=None) -> Dict[str, object]:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    print("[train_baseline] precision: "
+    print(f"[{tag}] precision: "
           + ("bf16 activations, f32 parameters" if opt.bf16 else "f32")
           + (", narrowed softmax" if opt.bf16 and opt.narrow_sm else ""))
     seed_everything(opt.seed, debug=opt.debug)
@@ -115,21 +119,19 @@ def main(argv=None) -> Dict[str, object]:
     loaders, _ = build_dataset(opt)
     train_loader = loaders["training"]
     steps_per_epoch = len(train_loader)
-    cache = setup_pool(opt, DeviceImageCache, train_loader.dataset, device, "train_baseline")
-    eval_cache = setup_pool(opt, DeviceEvalCache, loaders["testing"].dataset, device,
-                            "train_baseline")
+    cache = setup_pool(opt, DeviceImageCache, train_loader.dataset, device, tag)
+    eval_cache = setup_pool(opt, DeviceEvalCache, loaders["testing"].dataset, device, tag)
     # the model is sized from the first test batch, as the JAX package inits it
     batches = iter(loaders["testing"])
     _, images0, _ = next(batches)
     batches.close()
     model, _, state = build_training(opt, steps_per_epoch, device, img_size=images0.shape[1])
     logger = RunLogger(opt)
-    print(f"[train_baseline] run dir: {logger.run_dir}")
+    print(f"[{tag}] run dir: {logger.run_dir}")
     resumed = None
     if opt.resume_path:
         resumed = (resume_train_state(opt.resume_path, state), state.step)
-        print(f"[train_baseline] resumed {opt.resume_path} (epoch {resumed[0]}, "
-              f"step {resumed[1]})")
+        print(f"[{tag}] resumed {opt.resume_path} (epoch {resumed[0]}, step {resumed[1]})")
 
     # the miner's draws and the pool's augmentation (the JAX package's
     # PRNGKey(seed + 1) stream)
@@ -175,7 +177,7 @@ def main(argv=None) -> Dict[str, object]:
 
         if epoch % opt.evalevery == 0 or epoch == opt.n_epochs - 1:
             te = time.time()
-            metrics = evaluate_plain(model, loaders["testing"], device, eval_cache)
+            metrics = evaluate(model, loaders["testing"], device, eval_cache)
             _sync(device)
             summary["eval"].append(metrics)
             logger.log("Test", metrics, epoch)
@@ -194,6 +196,11 @@ def main(argv=None) -> Dict[str, object]:
     print(f"best R@1: {best_r1:.3f}")
     summary["best_r1"] = best_r1
     return summary
+
+
+def main(argv=None) -> Dict[str, object]:
+    """Train; returns :func:`train`'s summary."""
+    return train(resolve_precision(from_args(argv)), "train_baseline", evaluate_plain)
 
 
 if __name__ == "__main__":

@@ -58,6 +58,9 @@ class Config:
     use_soft: bool = False
     use_rollout: bool = False
     use_ot: bool = False
+    # evaluate a DIML model: its per-patch output is the bank, its enc_out
+    # the center (the reference's training_mode)
+    training: bool = False
     temperature: float = 0.1
     ot_part: float = 1.0
     debug: bool = False
@@ -151,6 +154,22 @@ def resolve_precision(opt: Config) -> Config:
             (a.startswith("cvt") and "diml" not in a)
             or a.startswith(("resnet50", "irresnet50", "vit", "deit"))
             or "swin" in a))
+    if opt.narrow_sm is None:
+        opt = opt.replace(narrow_sm=bool(opt.bf16))
+    return opt
+
+
+def resolve_diml_precision(opt: Config) -> Config:
+    """``opt`` with ``bf16`` and ``narrow_sm`` resolved where they are None,
+    as the JAX package's DIML training CLI resolves them
+    (vit_reranking_tpu/cli/train_diml.py:74-85), "the device is CUDA" for
+    "the backend is a TPU": bf16 for every ``cvt*`` arch, ``*diml*``
+    included, ``resnet50*`` and ``irresnet50*`` on the card (the per-patch
+    head and the structural loss stay f32), f32 elsewhere and on the CPU;
+    ``narrow_sm`` follows ``bf16``.  Explicit flags stand."""
+    if opt.bf16 is None:
+        on_card = opt.device.split(":")[0] == "cuda"
+        opt = opt.replace(bf16=on_card and opt.arch.startswith(("cvt", "resnet50", "irresnet50")))
     if opt.narrow_sm is None:
         opt = opt.replace(narrow_sm=bool(opt.bf16))
     return opt

@@ -1,8 +1,9 @@
 """Torch checkpoint -> port weight converters, with a consumption audit.
 
-Port of the CvT, ViT/DeiT and Swin parts of vit_reranking_tpu/core/convert.py.
-The reference trains from ImageNet/DeiT/Swin torch checkpoints (reference
-architectures/cvt.py:695-722, vit.py:31-40, swin.py:23-37).  The JAX
+Port of the ResNet-50, CvT, ViT/DeiT and Swin parts of
+vit_reranking_tpu/core/convert.py.  The reference trains from
+ImageNet/DeiT/Swin torch checkpoints (reference architectures/resnet50.py,
+cvt.py:695-722, vit.py:31-40, swin.py:23-37).  The JAX
 package maps their keys onto Flax trees; here each key maps straight onto a
 ``state_dict`` name of the port's model, which follows the Flax module
 names (``stage2.blocks.9.attn.conv_proj_q.conv.weight`` becomes
@@ -191,9 +192,36 @@ def convert_swin(state_dict: Mapping[str, Any], depths=(2, 2, 6, 2)) -> Dict[str
     return out
 
 
+def convert_resnet50(state_dict: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """torchvision / pretrainedmodels ResNet-50 checkpoint (``module.`` and
+    ``model.`` prefixes stripped) -> the port's ResNet-50 trunk entries
+    (JAX convert.py:236-262): ``layer2.0.downsample.0`` becomes
+    ``trunk.layer2_0.downsample_conv``, ``downsample.1`` the
+    ``downsample_bn``; BatchNorm statistics included.  The ImageNet
+    classifier (``fc``, or pretrainedmodels' ``last_linear``) is not read."""
+    sd = strip_prefix(strip_prefix(state_dict, "module."), "model.")
+    out: Dict[str, torch.Tensor] = {}
+
+    def bn(src: str, dst: str) -> None:
+        for leaf in ("weight", "bias", "running_mean", "running_var"):
+            out[f"{dst}.{leaf}"] = _t(sd[f"{src}.{leaf}"])
+
+    out["trunk.conv1.weight"] = _t(sd["conv1.weight"])
+    bn("bn1", "trunk.bn1")
+    for li, blocks in enumerate((3, 4, 6, 3)):
+        for bi in range(blocks):
+            src, dst = f"layer{li + 1}.{bi}", f"trunk.layer{li + 1}_{bi}"
+            for ci in (1, 2, 3):
+                out[f"{dst}.conv{ci}.weight"] = _t(sd[f"{src}.conv{ci}.weight"])
+                bn(f"{src}.bn{ci}", f"{dst}.bn{ci}")
+            if f"{src}.downsample.0.weight" in sd:
+                out[f"{dst}.downsample_conv.weight"] = _t(sd[f"{src}.downsample.0.weight"])
+                bn(f"{src}.downsample.1", f"{dst}.downsample_bn")
+    return out
+
+
 # the JAX package's converter families whose models the port does not have
-_UNPORTED_FAMILIES = ("resnet50", "irresnet50", "netvlad", "densenet", "googlenet",
-                      "bninception")
+_UNPORTED_FAMILIES = ("irresnet50", "netvlad", "densenet", "googlenet", "bninception")
 
 
 def convert_for_arch(arch: str, sd: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -201,6 +229,8 @@ def convert_for_arch(arch: str, sd: Mapping[str, Any]) -> Dict[str, torch.Tensor
     architectures/__init__.py:11-34); the classifier head is never carried
     over (the DML head is fresh)."""
     a = arch.lower()
+    if a.startswith("resnet50"):
+        return convert_resnet50(sd)
     if a.startswith("cvt"):
         return convert_cvt(sd, include_head=False)
     if a.startswith("vit") or a.startswith("deit"):

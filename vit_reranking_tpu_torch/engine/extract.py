@@ -9,8 +9,11 @@ eval_cvt_diml.py:225-305): run the model over the eval loader, collect
   * the q/k projections (N, heads, T+1, hd) of the ViT's probed block for
     the qk method (eval_attn_diml.py:18-38)
 then L2-normalize the bank and centers over the channel axis
-(eval_cvt_diml.py:304-305).  ``extract_features_device`` does the same over
-a pool resident on the device (data/device_cache.py::DeviceEvalCache):
+(eval_cvt_diml.py:304-305).  In training mode (a DIML model's
+evaluation, eval_cvt_diml.py:280-285) the bank is the model's per-patch
+output and the center its ``enc_out``.  ``extract_features_device`` does
+the same over a pool resident on the device
+(data/device_cache.py::DeviceEvalCache):
 ``--cache_device``, no image crosses from the host; ``embed_split`` takes
 whichever of the two a split has.
 """
@@ -30,16 +33,22 @@ from ..ops.similarity import l2_normalize
 
 @torch.no_grad()
 def embed_batch(model, images: torch.Tensor, grid_size: int = 7, use_rollout: bool = False,
-                use_qk: bool = False) -> Dict[str, torch.Tensor]:
+                use_qk: bool = False, training_mode: bool = False) -> Dict[str, torch.Tensor]:
     """One batch (B, 3, H, W) -> {'bank' (B, D, grid^2), 'center' (B, D),
     'rollout' (B, grid^2)?, 'q'/'k' (B, heads, T+1, hd)?}, not yet
-    normalized."""
-    out, (_, no_avg_feat), aux = model(images, ret_attn=use_rollout or use_qk)
-    tokens = aux.get("head_tokens", no_avg_feat)
-    B, L, D = tokens.shape
-    s = int(round(L**0.5))
-    fmap = grid_resize_tokens(tokens.transpose(1, 2).reshape(B, D, s, s), grid_size)
-    res = {"bank": fmap.reshape(B, D, grid_size * grid_size), "center": out}
+    normalized.  ``training_mode``: the model's first output is the
+    per-patch map (B, g, g, D) (a DIML model), which becomes the bank (B,
+    D, g^2) as it is, and its ``enc_out`` the center (JAX extract.py:48-53)."""
+    out, (enc_out, no_avg_feat), aux = model(images, ret_attn=use_rollout or use_qk)
+    if training_mode:
+        B = out.shape[0]
+        res = {"bank": out.reshape(B, -1, out.shape[-1]).transpose(1, 2), "center": enc_out}
+    else:
+        tokens = aux.get("head_tokens", no_avg_feat)
+        B, L, D = tokens.shape
+        s = int(round(L**0.5))
+        fmap = grid_resize_tokens(tokens.transpose(1, 2).reshape(B, D, s, s), grid_size)
+        res = {"bank": fmap.reshape(B, D, grid_size * grid_size), "center": out}
     if use_rollout:
         res["rollout"] = rollout_saliency(aux["rollout_maps"])
     if use_qk:
@@ -54,6 +63,7 @@ def extract_features(
     use_rollout: bool = False,
     device: str = "cuda",
     use_qk: bool = False,
+    training_mode: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Run ``model`` (in evaluation mode, on ``device``) over a loader of
     (labels, NHWC images, indices) batches; returns tensors on ``device``
@@ -68,7 +78,7 @@ def extract_features(
     labels = []
     for lab, images, _ in loader:
         x = torch.from_numpy(np.ascontiguousarray(images)).to(device).permute(0, 3, 1, 2).contiguous()
-        res = embed_batch(model, x, grid_size, use_rollout, use_qk)
+        res = embed_batch(model, x, grid_size, use_rollout, use_qk, training_mode)
         for k, v in res.items():
             parts[k].append(v)
         labels.append(np.asarray(lab))
@@ -91,6 +101,7 @@ def extract_features_device(
     use_rollout: bool = False,
     use_qk: bool = False,
     uint8_input: bool = False,
+    training_mode: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """:func:`extract_features` over a pool resident on its device,
     (N, H, W, 3), uint8 pixels normalized a batch at a time
@@ -111,7 +122,7 @@ def extract_features_device(
         x = images.index_select(0, rows[s:s + batch_size]).permute(0, 3, 1, 2).float()
         if pixels is not None:
             x = pixels(x)
-        res = embed_batch(model, x.contiguous(), grid_size, use_rollout, use_qk)
+        res = embed_batch(model, x.contiguous(), grid_size, use_rollout, use_qk, training_mode)
         for k, v in res.items():
             parts.setdefault(k, []).append(v)
     out = {k: torch.cat(v)[:n] for k, v in parts.items()}
@@ -121,14 +132,17 @@ def extract_features_device(
 
 
 def embed_split(model, loader, pool=None, grid_size: int = 7, use_rollout: bool = False,
-                use_qk: bool = False, device: str = "cuda") -> Dict[str, torch.Tensor]:
+                use_qk: bool = False, device: str = "cuda",
+                training_mode: bool = False) -> Dict[str, torch.Tensor]:
     """A split's features and labels, as :func:`extract_features` returns
     them: over the resident ``pool`` (data/device_cache.py::DeviceEvalCache,
     ``--cache_device``) in the loader's batch size when one is given, else
     over ``loader``."""
     if pool is None:
-        return extract_features(model, loader, grid_size, use_rollout, device, use_qk)
+        return extract_features(model, loader, grid_size, use_rollout, device, use_qk,
+                                training_mode)
     feats = extract_features_device(model, pool.images, loader.batch_size, grid_size,
-                                    use_rollout, use_qk, uint8_input=not pool.normalized)
+                                    use_rollout, use_qk, uint8_input=not pool.normalized,
+                                    training_mode=training_mode)
     feats["labels"] = pool.labels
     return feats

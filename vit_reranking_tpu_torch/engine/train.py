@@ -59,27 +59,33 @@ def make_optimizer(opt_name: str, weight_decay: float, groups: Dict[str, List[nn
 class TrainState:
     """What the JAX package's TrainState holds, as live objects: the model
     (parameters and BatchNorm statistics), the criterion (loss parameters),
-    the optimizer (its state) and the step count."""
+    the optimizer (its state) and the step count; ``pass_class_token``
+    hands the model's ``enc_out`` to the criterion as ``class_token`` (the
+    JAX package's ``make_train_step(pass_class_token=...)``)."""
 
     model: nn.Module
     criterion: nn.Module
     optimizer: torch.optim.Optimizer
     schedule: Callable[[float, int], float]  # (base lr, step) -> lr
     step: int = 0
+    pass_class_token: bool = False
 
 
 def init_train_state(model: nn.Module, criterion: nn.Module, optimizer: torch.optim.Optimizer,
                      tau: Sequence[int] = (1000,), gamma: float = 0.3,
-                     steps_per_epoch: int = 1) -> TrainState:
+                     steps_per_epoch: int = 1, pass_class_token: bool = False) -> TrainState:
     def schedule(base_lr: float, count: int) -> float:
         return multistep_schedule(base_lr, tau, gamma, steps_per_epoch)(count)
 
-    return TrainState(model, criterion, optimizer, schedule)
+    return TrainState(model, criterion, optimizer, schedule,
+                      pass_class_token=pass_class_token)
 
 
 def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-    """One step: forward in training mode, criterion on the global embedding,
+    """One step: forward in training mode, criterion on the model's first
+    output (the global embedding, or a DIML model's per-patch map; with
+    ``state.pass_class_token`` also on its ``enc_out`` as ``class_token``),
     backward, optimizer update.  Returns the loss before the update and the
     L2 norm and largest magnitude of the model's gradients
     (engine/train.py:154-165), as device scalars.
@@ -88,8 +94,9 @@ def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
     under ``jax.grad``, so weight decay still moves it."""
     model, criterion, optimizer = state.model, state.criterion, state.optimizer
     model.train()
-    embed, _, _ = model(images)
-    loss = criterion(embed, labels, generator=generator)
+    embed, (enc_out, _), _ = model(images)
+    kwargs = {"class_token": enc_out} if state.pass_class_token else {}
+    loss = criterion(embed, labels, generator=generator, **kwargs)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
     for group in optimizer.param_groups:

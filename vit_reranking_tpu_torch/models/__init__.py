@@ -1,8 +1,9 @@
 """Model registry — substring dispatch over the arch string.
 
 Port of vit_reranking_tpu/models/__init__.py::select (reference
-architectures/__init__.py:11-34) for the CvT, Swin and ViT/DeiT arches; the
-other backbones come with later slices of the port.
+architectures/__init__.py:11-34) for the ResNet-50, ResNet-50-DIML, CvT,
+CvT-DIML, Swin and ViT/DeiT arches; the other backbones come with later
+slices of the port.
 """
 
 from __future__ import annotations
@@ -11,7 +12,8 @@ from typing import Dict, Optional
 
 import torch
 
-from .cvt import CvTNetwork
+from .cvt import CvTDIML, CvTNetwork
+from .resnet import ResNet50DIML, ResNet50Network
 from .swin import SwinNetwork
 from .vit import ViTNetwork
 
@@ -25,12 +27,21 @@ def select(arch: str, opt, generator: Optional[torch.Generator] = None, img_size
     input.
 
     ``opt.bf16`` picks the activation compute dtype (bf16 or f32) and
-    ``opt.narrow_sm`` the narrowed softmax, for CvT, Swin and ViT/DeiT as
-    the JAX package passes them (models/__init__.py:37, :87, :104)."""
+    ``opt.narrow_sm`` the narrowed softmax, as the JAX package passes them
+    (models/__init__.py:37-48, :87, :104); `_frozen` freezes every
+    BatchNorm of a ResNet, and `_diml` arches return the per-patch map
+    first.  The branches go in the JAX package's order."""
     a = arch.lower()
     bf16 = bool(getattr(opt, "bf16", False))
     dtype = torch.bfloat16 if bf16 else torch.float32
     narrow_sm = bool(getattr(opt, "narrow_sm", False))
+    frozen = "frozen" in a
+    if a.startswith("resnet50_diml"):
+        return ResNet50DIML(embed_dim=opt.embed_dim, bn_frozen=frozen, generator=generator,
+                            dtype=dtype)
+    if a.startswith("resnet50"):
+        return ResNet50Network(embed_dim=opt.embed_dim, normalize="normalize" in a,
+                               bn_frozen=frozen, generator=generator, dtype=dtype)
     if a.startswith("vit") or a.startswith("deit"):
         return ViTNetwork(embed_dim=opt.embed_dim, normalize="normalize" in a,
                           qk_block=opt.blk_ind, img_size=img_size, generator=generator,
@@ -41,24 +52,29 @@ def select(arch: str, opt, generator: Optional[torch.Generator] = None, img_size
         # clamp and do not depend on the input size
         return SwinNetwork(embed_dim=opt.embed_dim, normalize="normalize" in a,
                            generator=generator, narrow_sm=narrow_sm, dtype=dtype)
-    if a.startswith("cvt") and "diml" not in a and "fp" not in a:
+    if a.startswith("cvt") and "diml" in a:
+        return CvTDIML(embed_dim=opt.embed_dim, grid_size=opt.grid_size, generator=generator,
+                       narrow_sm=narrow_sm, dtype=dtype)
+    if a.startswith("cvt") and "fp" not in a:
         return CvTNetwork(
             embed_dim=opt.embed_dim, normalize="normalize" in a, generator=generator,
             narrow_sm=narrow_sm, dtype=dtype,
         )
     raise NotImplementedError(
-        f"architecture {arch} is not ported yet "
-        "(the port has CvTNetwork, SwinNetwork and ViTNetwork)"
+        f"architecture {arch} is not ported yet (the port has ResNet50Network, "
+        "ResNet50DIML, CvTNetwork, CvTDIML, SwinNetwork and ViTNetwork)"
     )
 
 
 def frozen_param_mask(arch: str, model: torch.nn.Module) -> Dict[str, bool]:
-    """Parameter name -> trainable, for the CvT, Swin and ViT/DeiT arches
-    (those branches of the JAX package's ``frozen_param_mask``): for CvT,
-    ``_frozen`` freezes stages 0 and 1 (reference cvt.py:724-733); for Swin
-    and ViT/DeiT it freezes the backbone and trains the head only; ``_noln``
-    freezes the LayerNorms (cvt.py:858-864).  Frozen parameters train at
-    learning rate 0."""
+    """Parameter name -> trainable, for the ported arches (those branches
+    of the JAX package's ``frozen_param_mask``, models/__init__.py:110-137):
+    for CvT and CvT-DIML, ``_frozen`` freezes stages 0 and 1 (reference
+    cvt.py:724-733); for Swin and ViT/DeiT it freezes the backbone and
+    trains the head only; ``_noln`` freezes the LayerNorms (cvt.py:858-864).
+    A ResNet's ``_frozen`` masks no parameter: it freezes the BatchNorm
+    statistics inside the model, and their scale and bias still train.
+    Frozen parameters train at learning rate 0."""
     a = arch.lower()
     out = {}
     for name, _ in model.named_parameters():

@@ -119,16 +119,23 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     As Flax ``BatchNorm(dtype=compute_dtype)``: statistics are taken and the
     input normalised in f32, the running statistics stay f32, and the output
-    is in the compute dtype (f32 when it is None)."""
+    is in the compute dtype (f32 when it is None).
 
-    def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None, **kw):
+    ``frozen`` reads the running statistics in training mode too and never
+    updates them, as Flax's ``use_running_average=True`` (the `_frozen`
+    ResNet arches); the scale and bias still train."""
+
+    def __init__(self, *args, compute_dtype: Optional[torch.dtype] = None,
+                 frozen: bool = False, **kw):
         super().__init__(*args, **kw)
         self.compute_dtype = compute_dtype
+        self.frozen = frozen
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = _compute(x, self.compute_dtype)
-        if not self.training:
-            return super().forward(x).to(dt)
+        if not self.training or self.frozen:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                                False, 0.0, self.eps).to(dt)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps).to(dt)
         with torch.no_grad():
             dims = (0, 2, 3)

@@ -36,6 +36,7 @@ import torch
 import torch.nn as nn
 
 from ..ops import attention as kv_attention
+from ..ops.pooling import adaptive_avg_pool2d
 from ..ops.rollout import block_rollout_map
 from ..ops.similarity import l2_normalize
 from .common import (
@@ -302,3 +303,50 @@ class CvTNetwork(nn.Module):
         # eval path needs head-projected token maps (eval_cvt_diml.py:269-276)
         aux["head_tokens"] = self.head(no_avg_feat)
         return out, (enc_out, no_avg_feat), aux
+
+
+class CvTDIML(nn.Module):
+    """Structural (per-patch embedding) variant (reference cvt.DIML,
+    cvt.py:820-900; JAX cvt.py:507-560).
+
+    ``forward(x, ret_attn)`` returns ``(per_feat, (global_enc, no_avg_feat),
+    aux)``: no_avg_feat the LayerNorm'd token map (B, g, g, C) in the JAX
+    package's layout, adaptive-pooled to ``grid_size`` g when the trunk's
+    map is another size; per_feat (B, g, g, embed_dim) from the 1x1-conv
+    head ``last_linear`` (a Linear over channels); global_enc (B,
+    embed_dim) the same head on the normed cls token.  The trunk's tokens
+    and cls token go to f32 before the one shared LayerNorm ``norm``, so the
+    head and the structural loss are f32 whatever ``dtype`` is.  With
+    ``ret_attn``, aux carries ``rollout_maps`` (L, B, G, G).
+    """
+
+    def __init__(self, embed_dim: int = 128, grid_size: int = 7, rollout_grid: int = 7,
+                 spec: CvTSpec = CVT13_SPEC, generator: Optional[torch.Generator] = None,
+                 narrow_sm: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.grid_size = grid_size
+        self.trunk = ConvolutionalVisionTransformer(spec, rollout_grid, narrow_sm, dtype)
+        dim = spec.dim_embed[-1]
+        self.norm = LayerNormFp32(dim)
+        self.last_linear = nn.Linear(dim, embed_dim)
+        init_weights(self, generator)
+        with torch.no_grad():
+            for i in range(spec.num_stages):
+                stage = getattr(self.trunk, f"stage{i}")
+                if stage.with_cls:
+                    trunc_normal_(stage.cls_token, 0.02, generator)
+
+    def forward(self, x: torch.Tensor, ret_attn: bool = False):
+        tokens_hw, cls_tok, rollout_maps = self.trunk(x, ret_attn)
+        B, C, H, W = tokens_hw.shape
+        tokens = self.norm(tokens_hw.float().flatten(2).transpose(1, 2))
+        no_avg_feat = tokens.reshape(B, H, W, C)
+        if H != self.grid_size:
+            no_avg_feat = adaptive_avg_pool2d(
+                no_avg_feat.permute(0, 3, 1, 2), self.grid_size).permute(0, 2, 3, 1)
+        per_feat = self.last_linear(no_avg_feat)
+        global_enc = self.last_linear(self.norm(cls_tok.float()))[:, 0]
+        aux: Dict[str, Any] = {}
+        if ret_attn:
+            aux["rollout_maps"] = torch.stack(rollout_maps)
+        return per_feat, (global_enc, no_avg_feat), aux

@@ -12,7 +12,8 @@ map (the TPU kernel's ``has_cost`` mode, rerank_pallas.py:115-127), while the
 score still contracts against S.
 
 Early exit, as in the JAX package: full OT freezes each pair on its own mean
-residual (rank-identical to the reference's batch exit); partial OT freezes
+residual (the reference's batch exit, which the eager path keeps, can order
+near-tied candidates otherwise); partial OT freezes
 one query's K candidates together on their batch-mean residual
 (the reference rule, utilities/diml.py:50-52).  For
 K > ``PAIR_CHUNK`` the JAX kernel splits a query's candidates into
