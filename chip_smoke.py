@@ -58,7 +58,16 @@ seeded generator:
     with --use_ot K1 at R = 16 on the 2048-d map), train_diml on
     ResNet-50-DIML and CvT-DIML (margin_diml; K1 in the in-train featvit
     evaluation, K3's bf16 form in CvT-DIML; a warm step's host syncs and
-    busy share), and one f32 ResNet-50-DIML step against the CPU's.
+    busy share), and one f32 ResNet-50-DIML step against the CPU's;
+  * MSLS place recognition: test_msls_baseline --use_ot (full-width CvT-13
+    with embed_dim 128 at 224 px on the synthetic MSLS set: global recall
+    and the query != gallery featvit rerank, K1), msls_val at a 256-query
+    tile (K1 held against its plain version there), and
+    train_msls_baseline with scripts/baselines/msls_train.sh's flags on a
+    written city of 640x480 JPEGs at 224 x 224 (hard-negative mining with
+    the current model, triplet steps of 16 x 7 images, validation) in the
+    JAX CLI's f32 (K3 forward and backward) and with --bf16 (K3's bf16
+    form), and one f32 MSLS step against the CPU's.
 
 For each path it checks that its kernels carried it (launch counts set to 0
 just before and read just after), and it checks the models' forward or one
@@ -2438,6 +2447,65 @@ def k1_check_captured(torch, tag, captured, K=100):
     return k1_check(torch, tag, S, u, v, S.shape[0] // K, K, ranks=False, **kw)
 
 
+def k1_residuals_f64(torch, S, u, v, steps, ot_temp=0.05):
+    """Full OT in f64 (sinkhorn_scores_plain's arithmetic): each pair's mean
+    row residual at update ``steps[i]`` (1-based), the quantity its exit
+    test holds to the threshold there."""
+    S, u, v = S.double(), u.double(), v.double()
+    Km = torch.exp(-(1.0 - S) / ot_temp)
+    r, c = torch.ones_like(u), torch.ones_like(v)
+    out = torch.zeros(S.shape[0], dtype=torch.float64, device=S.device)
+    for it in range(int(steps.max())):
+        r_new = u / torch.bmm(Km, c[:, :, None])[:, :, 0]
+        c = v / torch.bmm(Km.transpose(1, 2), r_new[:, :, None])[:, :, 0]
+        out = torch.where(steps == it + 1, torch.mean(torch.abs(r_new - r), dim=1), out)
+        r = r_new
+    return out
+
+
+def k1_exit_aware(torch, tag, S, u, v, window=1e-3, **kw):
+    """Kernel K1 against its plain version on a path's own full-OT pairs,
+    where each pair exits on its own residual: a pair whose residual comes
+    within f32 rounding of the threshold can stop one update apart in the
+    two (another sum order), and its score then moves by far more than
+    K1_TOL.  So each version is held to the same arithmetic in f64 with its
+    own exits (K1_TOL), and every pair whose exits differ must have its f64
+    residual, at the first update where the two decided otherwise, within
+    ``window`` (relative) of the threshold.  Returns (kernel scores, plain
+    scores, the mask of pairs whose exits differ)."""
+    from vit_reranking_tpu_torch.ops.rerank import sinkhorn_scores, sinkhorn_scores_plain
+
+    if kw.get("group", 1) != 1 or kw.get("ot_part", 1.0) <= 0.999:
+        raise ValueError("k1_exit_aware: full OT, one pair a group")
+    out, k_iters = sinkhorn_scores(S, u, v, return_iters=True, **kw)
+    ref, p_iters = sinkhorn_scores_plain(S, u, v, return_iters=True, **kw)
+    err_k = float((out.double() - k1_plain_f64(torch, S, u, v, k_iters, **kw)).abs().max())
+    err_p = float((ref.double() - k1_plain_f64(torch, S, u, v, p_iters, **kw)).abs().max())
+    flips = k_iters != p_iters
+    idx = torch.nonzero(flips).flatten()
+    dist = 0.0
+    if idx.numel():
+        m = torch.minimum(k_iters[idx], p_iters[idx])
+        res = k1_residuals_f64(torch, S[idx], u[idx], v[idx], m, kw.get("ot_temp", 0.05))
+        dist = float((res / kw.get("thresh", 1e-1) - 1.0).abs().max())
+    ms = cuda_ms(torch, lambda: sinkhorn_scores(S, u, v, **kw), reps=10)
+    plain_ms = cuda_ms(torch, lambda: sinkhorn_scores_plain(S, u, v, **kw), reps=3)
+    R = S.shape[-1]
+    bound_ms, bound_by = bound(S.numel() * 4 + (u.numel() + v.numel() + S.shape[0]) * 4,
+                               int(k_iters.sum()) * 4 * R * R + S.shape[0] * 6 * R * R)
+    say(f"[{tag}] exit-aware: kernel vs f64 with its exits {err_k:.3e}, plain vs f64 with its "
+        f"exits {err_p:.3e}; {int(flips.sum())} of {S.shape[0]} pairs exit at other updates in "
+        f"the two, the f64 residual there within {dist:.3e} of the threshold (relative); "
+        f"largest kernel - plain {float((out - ref).abs().max()):.3e}, elsewhere "
+        f"{float((out - ref)[~flips].abs().max()):.3e}; mean_iters="
+        f"{float(k_iters.float().mean()):.2f} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"bound_ms={bound_ms:.5f} ({bound_by})")
+    if not (err_k <= K1_TOL and err_p <= K1_TOL and dist <= window
+            and float((out - ref)[~flips].abs().max()) <= K1_TOL):
+        raise AssertionError(f"{tag}: kernel disagrees with its plain version beyond its exits")
+    return out, ref, flips
+
+
 def step_profile(torch, tag, args, resolve, port_kernels=()):
     """One warm train step of ``args`` (precision resolved by ``resolve``,
     the CLI's rule) with the host syncs it makes counted
@@ -2615,6 +2683,316 @@ def phase_diml(torch):
     return resnet, cvt
 
 
+# test_msls_baseline on the synthetic MSLS set (48 queries, 96 database
+# images) at 224 px: full-width CvT-13 with embed_dim 128, global recall and
+# the DIML rerank of each query's top 100 (K = 96, the whole database)
+MSLS_EVAL_ARGS = [
+    "--dataset", "synthetic", "--arch", "cvt_13_normalize", "--embed_dim", "128",
+    "--msls_image_size", "224", "--use_ot", "--seed", "0", "--device", "cuda",
+]
+# scripts/baselines/msls_train.sh on one written city (--mini_data) at
+# 224 x 224, batch 16 (16 x 7 = 112 images a step), one epoch; the tree's
+# path and --save_path are added by the phase
+MSLS_TRAIN_ARGS = [
+    "--dataset", "msls", "--arch", "cvt_13_normalize", "--embed_dim", "128", "--nNeg", "5",
+    "--margin", "0.1", "--lr", "0.0001", "--optim", "adam", "--lrstep", "20", "--lrgamma",
+    "0.5", "--n_epochs", "1", "--evalevery", "1", "--cachebatchsize", "20", "--mini_data",
+    "--imageresizeh", "224", "--imageresizew", "224", "--bs", "16", "--device", "cuda",
+]
+MSLS_FLAGS = dict(use_uniform=False, use_inverse=False, temperature=0.1, use_cls_token=True,
+                  ot_temp=0.05, use_minus=True, ot_part=1.0)
+
+
+def k3_counts():
+    from vit_reranking_tpu_torch.ops.attention import kv_resident_attention
+
+    return {c: getattr(kv_resident_attention, f"{c}_launches") for c in COUNTERS}
+
+
+def zero_k3():
+    from vit_reranking_tpu_torch.ops.attention import kv_resident_attention
+
+    for c in COUNTERS:
+        setattr(kv_resident_attention, f"{c}_launches", 0)
+
+
+def phase_msls_eval(torch):
+    """[msls-eval]: test_msls_baseline --use_ot on the synthetic MSLS set,
+    K1 and K3 counted (set to 0 just before, read just after), first and
+    warm wall.  Then the path's own K1 call against its plain version
+    (:func:`k1_exit_aware`), and the same features reranked eagerly: the
+    plain version's scores (torch ops on the path's S and marginals, each
+    pair exiting on its own residual as in the fused rerank and in
+    ``calc_similarity`` taken a pair at a time) must give the same DIML
+    recalls, and the same final order on every query none of whose pairs
+    exits at another update.  msls_val's own eager branch (use_ot off)
+    exits each query's candidates together, as the JAX package's eager
+    branch does, a different rule from the fused rerank's in both packages:
+    its recalls and the rows it orders otherwise are reported, not held."""
+    from vit_reranking_tpu_torch.cli import test_msls_baseline
+    from vit_reranking_tpu_torch.engine import msls_val as mv
+
+    runs, real = [], mv.msls_val
+
+    def spy(eval_set, extract, **kw):
+        details = {}
+        out = real(eval_set, extract, details=details, **kw)
+        runs.append((eval_set, extract, kw, details, out))
+        return out
+
+    walls, captured = [], []
+    with scratch_cwd(), switched([(test_msls_baseline, "msls_val", spy)]):
+        for i in range(2):
+            zero_k1()
+            zero_k3()
+            t0 = time.perf_counter()
+            with k1_captured(captured):
+                results = test_msls_baseline.main(MSLS_EVAL_ARGS)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if i == 0:
+                launches = {**k1_counts(), **k3_counts()}
+    say(f"[msls-eval] test_msls_baseline {walls[0]:.3f}s first, {walls[1]:.3f}s warm; launches "
+        f"{launches}; " + ", ".join(f"{k}={v:.4f}" for k, v in results.items()))
+    if launches["sinkhorn_score"] < 1 or launches["fwd"] < 1 or launches["bwd"]:
+        raise AssertionError(f"msls-eval: K1/K3 were not launched as the path needs: {launches}")
+    for k, v in results.items():
+        if not (math.isfinite(v) and 0.0 <= v <= 1.0):
+            raise AssertionError(f"msls-eval: {k} = {v}")
+    eval_set, extract, kw, details, fused = runs[-1]
+    (S, u, v), k1_kw = captured[0]
+    out, ref, flips = k1_exit_aware(torch, "K1 R=49 featvit qg (msls-eval)", S, u, v, **k1_kw)
+    qF, _, dF, _ = details["features"]
+    preds, final = details["preds"][0], details["final"][0]
+    Q, K = preds.shape[0], S.shape[0] // preds.shape[0]
+    top = preds[:, :K]
+    adj = ref.view(Q, K) + torch.gather(qF @ dF.T, 1, top)
+    eager_final = torch.cat([torch.gather(top, 1, torch.argsort(-adj, dim=1, stable=True)),
+                             preds[:, K:]], dim=1)
+    n_values = (1, 5, 10, 20, 50, 100)
+    eager_r = mv.recall_at_n([eager_final.cpu().numpy()], eval_set.all_pos_indices, n_values,
+                             len(eval_set.qIdx))
+    gap = max(abs(eager_r[i] - fused[f"dimlR_{n}"]) for i, n in enumerate(n_values))
+    flip_rows = flips.view(Q, K).any(dim=1)
+    parted = (eager_final != final).any(dim=1)
+    branch_details = {}
+    branch = real(eval_set, extract, details=branch_details, rerank_flags={"use_ot": False},
+                  **kw)
+    rows = int((branch_details["final"][0] != final).any(dim=1).sum())
+    gaps = {n: branch[f"dimlR_{n}"] - fused[f"dimlR_{n}"] for n in n_values}
+    say(f"[msls-eval] the plain version's rerank vs the fused (K1): largest DIML recall gap "
+        f"{gap:.4f}; {int(parted.sum())} of {Q} final orders part, "
+        f"{int((parted & ~flip_rows).sum())} of them on queries with no exit apart "
+        f"({int(flip_rows.sum())} such queries); msls_val's eager branch (each query's "
+        f"candidates exit together): DIML recall minus the fused one "
+        + " ".join(f"@{n} {g:+.4f}" for n, g in gaps.items())
+        + f", {rows} of {Q} rows ordered otherwise")
+    if gap != 0.0 or bool((parted & ~flip_rows).any()):
+        raise AssertionError("msls-eval: the fused rerank disagrees with the eager one")
+    return launches
+
+
+def phase_msls_eval_scale(torch):
+    """[msls-eval-scale]: msls_val on a SyntheticMSLS of 256 queries and
+    1024 database images at 224 px (full-width CvT-13, embed_dim 128), so
+    K1 runs one 256 x 100 query tile at R = 49, C = 128: the path's own
+    call against its plain version (:func:`k1_exit_aware`), and the same
+    shape on unit random features with the featvit route's marginals (the
+    msls_val flags) at the [K1 ...] bars, rankings included (the kernel's
+    numbers).  The validation's wall."""
+    from vit_reranking_tpu_torch.cli.train_msls_baseline import make_extract_fn
+    from vit_reranking_tpu_torch.data.msls import SyntheticMSLS
+    from vit_reranking_tpu_torch.engine.msls_val import msls_val
+    from vit_reranking_tpu_torch.models.cvt import CvTNetwork
+    from vit_reranking_tpu_torch.ops.similarity import cross_attention_marginals, l2_normalize
+
+    ds = SyntheticMSLS(n_queries=256, n_db=1024, image_size=224, seed=0)
+    model = CvTNetwork(embed_dim=128, generator=torch.Generator().manual_seed(0)).cuda()
+    captured = []
+    zero_k1()
+    t0 = time.perf_counter()
+    with k1_captured(captured):
+        results = msls_val(ds, make_extract_fn(model, True, torch.device("cuda")), batch=8)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = k1_counts()
+    say(f"[msls-eval-scale] msls_val over {len(ds.qImages)} + {len(ds.dbImages)} images "
+        f"{wall:.3f}s, K1 launches {launches}; "
+        + ", ".join(f"{k}={v:.4f}" for k, v in results.items()))
+    (S, u, v), kw = captured[0]
+    if launches["sinkhorn_score"] != 1 or S.shape != (256 * 100, 49, 49):
+        raise AssertionError(f"msls-eval-scale: K1 did not run one 256 x 100 tile: {launches}, "
+                             f"{tuple(S.shape)}")
+    k1_exit_aware(torch, "K1 R=49 featvit qg, MSLS tile 256 x 100 (msls-eval-scale)", S, u, v,
+                  **kw)
+    del model, captured, S, u, v
+    Q, K, C, R, N = 256, 100, 128, 49, 1024
+    gen = torch.Generator().manual_seed(7)
+    qb, db = (torch.randn(n, C, R, generator=gen).cuda() for n in (Q, N))
+    qb, db = qb / qb.norm(dim=1, keepdim=True), db / db.norm(dim=1, keepdim=True)
+    qc, dc = (l2_normalize(b.mean(-1) + 0.1 * torch.randn(b.shape[0], C, generator=gen).cuda())
+              for b in (qb, db))
+    top = torch.topk(qc @ dc.T, K, dim=1).indices
+    u, v, _ = cross_attention_marginals(qb, qc, db[top], dc[top], use_minus=True,
+                                        temperature=0.1)
+    S = torch.matmul(db[top].transpose(-1, -2), qb[:, None]).reshape(Q * K, R, R).contiguous()
+    k1 = k1_check(torch, "K1 R=49 featvit qg marginals, 256 x 100, unit random features", S,
+                  u.reshape(Q * K, R).contiguous(), v.reshape(Q * K, R).contiguous(), Q, K,
+                  **kw)
+    del S, u, v, qb, db
+    torch.cuda.empty_cache()
+    return k1
+
+
+@contextlib.contextmanager
+def msls_tree():
+    """A temporary MSLS tree (tests/stand_ins.py::write_msls_city): one city,
+    ``train_val/amman``, of 192 database and 64 query JPEGs at 640 x 480 on
+    real-magnitude UTM coordinates, with night, sideways and panorama rows;
+    yields its root."""
+    si = stand_ins()
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        si.write_msls_city(root, "amman", n_db=192, n_q=64, seed=0, image_size=(640, 480))
+        say(f"[msls-train] wrote an MSLS city of 64 query and 192 database JPEGs at 640x480 in "
+            f"{time.perf_counter() - t0:.3f}s")
+        yield root
+
+
+def msls_step_syncs(torch, summary, tree, args):
+    """The host syncs one warm MSLS step makes (CUDA sync debug mode), on
+    the trained model of ``summary`` and the run's first triplets."""
+    import warnings
+
+    from vit_reranking_tpu_torch.cli import train_msls_baseline as tm
+    from vit_reranking_tpu_torch.cli.common import _to_device
+    from vit_reranking_tpu_torch.core.config import from_args
+
+    opt = from_args(args + ["--source_path", tree])
+    ds = tm.build_msls(opt, "train")
+    ds.new_epoch()
+    ds.update_subcache(None)
+    q, p, negs = tm.batch_arrays(ds, list(range(16)))
+    model = summary["model"]
+    optim = tm.make_msls_optimizer(opt, model)
+
+    def step():
+        return tm.msls_train_step(opt, model, optim, 0, *(_to_device(a, "cuda") for a in
+                                                         (q, p, negs)))
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def phase_msls_train(torch, tree, tag, extra, expected):
+    """train_msls_baseline with scripts/baselines/msls_train.sh's flags on
+    the tree (plus ``extra``), K3 counted (set to 0 just before, read just
+    after): step losses, first and warm step seconds (CUDA events), peak
+    memory, a warm step's host syncs, the mining seconds and the
+    validation's recalls; ``expected(launches, steps)`` says the kernels
+    carried it.  Returns (launches, summary)."""
+    from vit_reranking_tpu_torch.cli import train_msls_baseline
+    from vit_reranking_tpu_torch.ops.attention import kv_resident_attention
+
+    args = MSLS_TRAIN_ARGS + extra
+    torch.cuda.reset_peak_memory_stats()
+    summary, launches, wall = run_train(torch, args + ["--source_path", tree],
+                                        kv_resident_attention, cli=train_msls_baseline)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses, secs = summary["step_loss"], summary["step_seconds"]
+    model = summary["model"]
+    dtype = model.trunk.stage0.dtype
+    syncs = msls_step_syncs(torch, summary, tree, args)
+    say(f"[{tag}] step losses " + " ".join(f"{x:.6f}" for x in losses))
+    say(f"[{tag}] step seconds (CUDA events): first {secs[0]:.4f}, warm "
+        + " ".join(f"{x:.4f}" for x in secs[1:]) + f"; peak memory {peak:.2f} GiB; host syncs "
+        f"in a warm step {syncs}; mining s " + " ".join(f"{x:.3f}" for x in
+                                                       summary["mine_seconds"]))
+    say(f"[{tag}] train_msls_baseline.main {wall:.3f}s; trunk {dtype}; K3 launches {launches}; "
+        "val " + ", ".join(f"{k}={v:.4f}" for k, v in summary["eval"][-1].items()))
+    if len(losses) < 3 or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{tag}: losses {losses}")
+    if not expected(launches, len(losses), dtype):
+        raise AssertionError(f"{tag}: K3 was not launched as the path needs: {launches}")
+    for k, v in summary["eval"][-1].items():
+        if not (math.isfinite(v) and 0.0 <= v <= 1.0):
+            raise AssertionError(f"{tag}: {k} = {v}")
+    del summary, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_msls_reference(torch):
+    """[msls-reference]: one f32 MSLS step of full CvT-13 (drop-path 0) on
+    the card against the same step on the CPU: 2 triplets of a query, a
+    positive and 5 negatives at 224 px (each a noisy copy of the query),
+    Adam at the recipe's lr; loss and gradient norm within STEP_RTOL."""
+    import copy
+
+    from vit_reranking_tpu_torch.cli import train_msls_baseline as tm
+    from vit_reranking_tpu_torch.core.config import from_args
+    from vit_reranking_tpu_torch.models.cvt import CvTNetwork, CvTSpec
+
+    base = CvTNetwork(embed_dim=128, spec=CvTSpec(drop_path_rate=(0.0, 0.0, 0.0)),
+                      generator=torch.Generator().manual_seed(0))
+    opt = from_args(MSLS_TRAIN_ARGS)
+    # the positive and the negatives all near the query, so that every
+    # triplet violates the margin and the loss is not 0
+    gen = torch.Generator().manual_seed(5)
+    q = torch.randn(2, 224, 224, 3, generator=gen)
+    p = q + 0.5 * torch.randn(2, 224, 224, 3, generator=gen)
+    negs = q[:, None] + 0.5 * torch.randn(2, 5, 224, 224, 3, generator=gen)
+
+    def one_step(device):
+        model = copy.deepcopy(base).to(device)
+        m = tm.msls_train_step(opt, model, tm.make_msls_optimizer(opt, model), 0,
+                               q.to(device), p.to(device), negs.to(device))
+        return {k: float(v) for k, v in m.items()}
+
+    card, cpu = one_step("cuda"), one_step("cpu")
+    rel = {k: abs(card[k] - cpu[k]) / abs(cpu[k]) for k in ("loss", "grad_l2")}
+    say(f"[msls-reference] card {card} cpu {cpu} rel_err "
+        + " ".join(f"{k}={v:.3e}" for k, v in rel.items()))
+    if not all(v <= STEP_RTOL for v in rel.values()) or not all(
+            math.isfinite(v) for v in card.values()):
+        raise AssertionError(f"msls-reference: card and CPU steps disagree beyond {STEP_RTOL}")
+
+
+def phase_msls(torch):
+    """The MSLS slice: [msls-eval], [msls-eval-scale], then on a written
+    city [msls-train] (f32, the JAX CLI's default: K3's f32 forward and
+    backward) and [msls-train-bf16] (--bf16: K3's bf16 form, no f32
+    launch), and [msls-reference].  Returns the K1 launches of
+    [msls-eval], the K3 launches of both trainings and K1's numbers at
+    the MSLS tile."""
+    t0 = time.perf_counter()
+    k1_eval = phase_msls_eval(torch)
+    k1_tile = phase_msls_eval_scale(torch)
+    with msls_tree() as tree:
+        f32 = phase_msls_train(
+            torch, tree, "msls-train", [],
+            lambda n, steps, dtype: (dtype == torch.float32 and n["bwd"] == steps
+                                     and n["fwd"] > steps and not n["fwd_bf16"]
+                                     and not n["bwd_bf16"]))
+        bf16 = phase_msls_train(
+            torch, tree, "msls-train-bf16", ["--bf16"],
+            lambda n, steps, dtype: (dtype == torch.bfloat16 and n["bwd_bf16"] == steps
+                                     and n["fwd_bf16"] > steps and not n["fwd"]
+                                     and not n["bwd"]))
+    phase_msls_reference(torch)
+    say(f"[msls] the MSLS phases took {time.perf_counter() - t0:.3f}s")
+    return k1_eval, f32, bf16, k1_tile
+
+
 def main():
     import torch
 
@@ -2664,11 +3042,13 @@ def main():
     phase_eval_bf16(torch)
     phase_resnet(torch)
     phase_diml(torch)
+    msls_k1, msls_f32, msls_bf16, _ = phase_msls(torch)
     kernels = [
         dict(name="sinkhorn_score", route="cuda",
              source="vit_reranking_tpu_torch/csrc/sinkhorn_score.cu",
              replaces="vit_reranking_tpu/ops/rerank_pallas.py:97",
-             launches=launches["sinkhorn_score"], **k1),
+             launches=launches["sinkhorn_score"], msls_launches=msls_k1["sinkhorn_score"],
+             **k1),
         dict(name="filter_threshold", route="cuda",
              source="vit_reranking_tpu_torch/csrc/filter_threshold.cu",
              replaces="vit_reranking_tpu/ops/rollout.py:29",
@@ -2676,11 +3056,11 @@ def main():
         dict(name="kv_attention_fwd", route="cuda",
              source="vit_reranking_tpu_torch/csrc/kv_attention.cu",
              replaces="vit_reranking_tpu/ops/attention_pallas.py:48",
-             launches=k3_launches["fwd"], **k3["fwd"]),
+             launches=k3_launches["fwd"], msls_launches=msls_f32["fwd"], **k3["fwd"]),
         dict(name="kv_attention_bwd", route="cuda",
              source="vit_reranking_tpu_torch/csrc/kv_attention.cu",
              replaces="vit_reranking_tpu/ops/attention_pallas.py:66",
-             launches=k3_launches["bwd"], **k3["bwd"]),
+             launches=k3_launches["bwd"], msls_launches=msls_f32["bwd"], **k3["bwd"]),
         dict(name="swin_attention_packed_fwd", route="cuda",
              source="vit_reranking_tpu_torch/csrc/swin_attention.cu",
              replaces="vit_reranking_tpu/ops/swin_attention_pallas.py:218",
@@ -2708,11 +3088,13 @@ def main():
         dict(name="kv_attention_fwd_bf16", route="cuda",
              source="vit_reranking_tpu_torch/csrc/kv_attention_bf16.cu",
              replaces="vit_reranking_tpu/ops/attention_pallas.py:48",
-             launches=k3_bf16_launches["fwd"], **k3_bf16["fwd"]),
+             launches=k3_bf16_launches["fwd"], msls_launches=msls_bf16["fwd_bf16"],
+             **k3_bf16["fwd"]),
         dict(name="kv_attention_bwd_bf16", route="cuda",
              source="vit_reranking_tpu_torch/csrc/kv_attention_bf16.cu",
              replaces="vit_reranking_tpu/ops/attention_pallas.py:66",
-             launches=k3_bf16_launches["bwd"], **k3_bf16["bwd"]),
+             launches=k3_bf16_launches["bwd"], msls_launches=msls_bf16["bwd_bf16"],
+             **k3_bf16["bwd"]),
         dict(name="swin_attention_packed_fwd_bf16", route="cuda",
              source="vit_reranking_tpu_torch/csrc/swin_attention_bf16.cu",
              replaces="vit_reranking_tpu/ops/swin_attention_pallas.py:218",

@@ -17,7 +17,7 @@ ROOT = Path(__file__).resolve().parents[1]
 SCRIPTS = ("chip_smoke", "chip_k3_variants", "chip_k1k2_variants", "chip_k4_variants")
 FILES = sorted((ROOT / "vit_reranking_tpu_torch").rglob("*.py")) + [
     ROOT / f"{name}.py" for name in SCRIPTS]
-BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "vit_reranking_tpu")
+BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "vit_reranking_tpu", "pandas", "sklearn")
 
 
 def _imports(tree):
@@ -46,7 +46,9 @@ def test_port_files_found():
                    "models/swin", "ops/swin_attention", "models/vit", "cli/test_diml_vit",
                    "data/transforms", "data/datasets", "core/convert", "cli/test_diml_swin",
                    "data/device_cache", "models/resnet", "losses/diml_ot", "losses/margin_diml",
-                   "cli/train_diml", "cli/test_diml_base"):
+                   "cli/train_diml", "cli/test_diml_base", "data/msls", "engine/msls_val",
+                   "losses/msls", "utils/visual", "cli/train_msls_baseline",
+                   "cli/test_msls_baseline"):
         assert f"vit_reranking_tpu_torch/{module}.py" in names
 
 
@@ -84,8 +86,11 @@ def test_no_jax_and_no_module_level_pil(path):
 def test_guard_catches_banned_imports():
     bad = ast.parse(
         "import jax.numpy\nfrom vit_reranking_tpu.ops import x\nfrom PIL import Image\n"
-        "def f():\n    from PIL import Image\n"
+        "def f():\n    from PIL import Image\n    import pandas as pd\n"
+        "    from sklearn.neighbors import NearestNeighbors\n"
     )
     assert _imports(bad) == [
         ("jax.numpy", False), ("vit_reranking_tpu.ops", False), ("PIL", False), ("PIL", True),
+        ("pandas", True), ("sklearn.neighbors", True),
     ]
+    assert {"pandas", "sklearn"} <= set(BANNED)

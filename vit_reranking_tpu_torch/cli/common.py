@@ -2,12 +2,13 @@
 Config, and the per-batch train step.
 
 Port of vit_reranking_tpu/cli/common.py for one card, with pretrained
-init, resuming, step checkpoints and the device-resident image pools: the
-mesh comes later.
+init, resuming, step checkpoints, the MSLS trainer's subcache checkpoints
+and the device-resident image pools: the mesh comes later.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import random
 from typing import Any, Dict, List, Optional
@@ -130,6 +131,110 @@ def resume_train_state(path: str, state: TrainState) -> int:
         state.optimizer.load_state_dict(ckpt["opt_state"])
     state.step = int(ckpt.get("step", state.step))
     return int(ckpt.get("epoch", 0))
+
+
+MINING_FILE = "latest_mining.npz"
+
+
+def _mining_arrays(state: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """data/msls.py::MSLS.mining_state as numpy arrays (no pickled object):
+    the generator's state as JSON text, the subcache split as its values
+    and lengths."""
+    out = {"rng": np.asarray(json.dumps(state["rng"])),
+           "current_subset": np.asarray(state["current_subset"]),
+           "nCacheSubset": np.asarray(state["nCacheSubset"])}
+    if state["negCache"] is not None:
+        neg = np.asarray(state["negCache"])
+        if neg.dtype == object:
+            raise ValueError("a ragged negative cache cannot be written as one array")
+        out["negCache"] = neg
+    if state["subcache_indices"] is not None:
+        parts = [np.asarray(a, np.int64) for a in state["subcache_indices"]]
+        out["subcache_values"] = np.concatenate(parts)
+        out["subcache_lengths"] = np.asarray([len(a) for a in parts], np.int64)
+    return out
+
+
+def _mining_state(z) -> Dict[str, Any]:
+    """Inverse of :func:`_mining_arrays` on a loaded archive."""
+    subcache = None
+    if "subcache_values" in z:
+        subcache = np.split(z["subcache_values"], np.cumsum(z["subcache_lengths"])[:-1])
+    return {"rng": json.loads(str(z["rng"])),
+            "negCache": z["negCache"] if "negCache" in z else None,
+            "subcache_indices": subcache,
+            "current_subset": int(z["current_subset"]),
+            "nCacheSubset": int(z["nCacheSubset"])}
+
+
+def _global_rng_arrays(device: torch.device) -> Dict[str, np.ndarray]:
+    """numpy's global generator (the trainer's triplet shuffle) and torch's
+    (DropPath's draws) on the host and on ``device``, as arrays."""
+    _, keys, pos, has_gauss, gauss = np.random.get_state()
+    out = {"np_keys": keys, "np_rest": np.asarray([pos, has_gauss], np.int64),
+           "np_gauss": np.asarray(gauss, np.float64),
+           "torch_cpu": torch.get_rng_state().numpy()}
+    if device.type == "cuda":
+        out["torch_cuda"] = torch.cuda.get_rng_state(device).numpy()
+    return out
+
+
+def _set_global_rngs(z, device: torch.device) -> None:
+    pos, has_gauss = (int(x) for x in z["np_rest"])
+    np.random.set_state(("MT19937", z["np_keys"], pos, has_gauss, float(z["np_gauss"])))
+    torch.set_rng_state(torch.from_numpy(z["torch_cpu"].copy()))
+    if device.type == "cuda" and "torch_cuda" in z:
+        torch.cuda.set_rng_state(torch.from_numpy(z["torch_cuda"].copy()), device)
+
+
+def maybe_msls_subcache_checkpoint(opt: Config, run_dir: str, model: torch.nn.Module,
+                                   optimizer: torch.optim.Optimizer, it_count: int,
+                                   epoch: int, dataset, metrics=None) -> bool:
+    """Under ``--checkpoint_every_steps`` (any nonzero value), save the
+    trainer at a subcache boundary (vit_reranking_tpu/cli/common.py:237-276):
+    the model, the optimizer, ``it_count``, ``epoch`` and the subset cursor
+    into ``{run_dir}/latest``, and beside it ``latest_mining.npz``, the
+    dataset's mining state (data/msls.py::MSLS.mining_state) with the
+    global generators the trainer draws from (numpy's, for the triplet
+    shuffle; torch's, for DropPath), as plain numpy arrays.  The subcache
+    boundary is the one point where the mining state and the model agree,
+    so a run resumed from it mines the same pools and triplets for every
+    later subcache.  Returns True when a checkpoint was written (the
+    epoch's evaluation calls this first, with ``metrics``, and saves the
+    model alone when it returns False)."""
+    if not opt.checkpoint_every_steps:
+        return False
+    save_checkpoint(f"{run_dir}/latest",
+                    {"params": model.state_dict(), "opt_state": optimizer.state_dict(),
+                     "it_count": it_count, "epoch": epoch,
+                     "subset": int(dataset.current_subset)}, metrics or {})
+    device = next(model.parameters()).device
+    np.savez(os.path.join(run_dir, MINING_FILE), **_mining_arrays(dataset.mining_state()),
+             **_global_rng_arrays(device))
+    return True
+
+
+def resume_msls_state(path: str, model: torch.nn.Module, optimizer: torch.optim.Optimizer):
+    """Restore an MSLS checkpoint (:func:`maybe_msls_subcache_checkpoint`'s,
+    or the model alone of an epoch's ``latest``) into ``model`` and
+    ``optimizer``.  Returns ``(it_count, epoch, subset, mining_state)``;
+    ``mining_state`` is None, and the caller starts the epoch afresh, unless
+    the checkpoint is a subcache one with its ``latest_mining.npz`` beside
+    it, whose global generators are then restored too
+    (vit_reranking_tpu/cli/common.py:279-325)."""
+    device = next(model.parameters()).device
+    ckpt = load_checkpoint(path, map_location=device)
+    model.load_state_dict(ckpt["params"])
+    if "opt_state" in ckpt:
+        optimizer.load_state_dict(ckpt["opt_state"])
+    mining = None
+    archive = os.path.join(os.path.dirname(path.rstrip("/")), MINING_FILE)
+    if "subset" in ckpt and os.path.exists(archive):
+        with np.load(archive, allow_pickle=False) as z:
+            mining = _mining_state(z)
+            _set_global_rngs(z, device)
+    return (int(ckpt.get("it_count", 0)), int(ckpt.get("epoch", 0)),
+            int(ckpt.get("subset", 0)), mining)
 
 
 def build_training(opt: Config, steps_per_epoch: int, device: torch.device,

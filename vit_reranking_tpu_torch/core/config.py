@@ -3,9 +3,10 @@
 A subset of the JAX package's ``core/config.py`` (which mirrors the
 reference's argparse flags, parameters.py:5-244): the fields the rerank
 evaluation (rollout, featvit and qk methods), the margin-loss training, the
-image-tree datasets, checkpoints and pretrained init read, with the same
-names and defaults, plus ``device``.  ``build_parser()`` regenerates an
-argparse parser from the fields and ``from_args`` parses a command line.
+MSLS training and evaluation, the image-tree datasets, checkpoints and
+pretrained init read, with the same names and defaults, plus ``device``.
+``build_parser()`` regenerates an argparse parser from the fields and
+``from_args`` parses a command line.
 """
 
 from __future__ import annotations
@@ -36,6 +37,19 @@ class Config:
     start_epoch: int = 0
     evalevery: int = 10
     max_patience: int = 100
+    # ---- MSLS training (parameters.py:16-40): the mining cache's embedding
+    # batch, the step schedule lr * lrgamma ** ((count // 1000) // lrstep),
+    # coupled weight decay and SGD's momentum, the triplet margin, the
+    # negatives a triplet takes, and the images' (h, w)
+    cachebatchsize: int = 20
+    lrstep: int = 20
+    lrgamma: float = 0.5
+    weightdecay: float = 0.001
+    momentum: float = 0.9
+    margin: float = 0.1
+    nNeg: int = 5
+    imageresizew: int = 640
+    imageresizeh: int = 480
     # ---- loss / mining (parameters.py:43-45)
     optim: str = "adam"
     loss: str = "margin"
@@ -64,6 +78,25 @@ class Config:
     temperature: float = 0.1
     ot_part: float = 1.0
     debug: bool = False
+    # the MSLS trainer's task loss and its weight; distillation, the
+    # cross-batch memory and feature-drift tracking are JAX package options
+    # the port does not have yet: the MSLS CLIs refuse them
+    task_loss: str = "triplet"
+    distill: Optional[str] = None
+    kd_weight: float = 1.0
+    tl_weight: float = 1.0
+    enable_xbm: bool = False
+    xbm_start_iteration: int = 1000
+    xbm_size: int = 10000
+    xbm_weight: float = 1.0
+    track_drift: bool = False
+    # ---- MSLS sequence tasks and subtasks (training_tools/msls.py:76-133),
+    # the synthetic MSLS set's image side, and --mini_data (one city, amman)
+    msls_task: str = "im2im"
+    msls_seq_length: int = 1
+    msls_subtask: str = "all"
+    msls_image_size: int = 64
+    mini_data: bool = False
     # ---- margin loss and distance miner (parameters.py:147-224)
     loss_margin_margin: float = 0.2
     loss_margin_beta_lr: float = 0.0005

@@ -4,7 +4,8 @@ Port of vit_reranking_tpu/data/transforms.py: the RevisitDML augmentation
 presets selected by ``--augmentation`` (reference parameters.py:12-13):
 ``base`` RandomResizedCrop(224) + flip, ``adv`` adds colour/brightness
 jitter, ``big`` 256-crops, ``red`` Resize + RandomCrop.  Evaluation:
-Resize(256) + CenterCrop(224).  Normalisation uses the ImageNet constants.
+Resize(256) + CenterCrop(224); MSLS: ``input_transform``, a bilinear resize
+to a fixed (h, w).  Normalisation uses the ImageNet constants.
 
 Every random draw comes from one explicit numpy ``Generator`` in the same
 order as the JAX package's, so the same seed gives the same bits.  PIL is
@@ -26,6 +27,12 @@ IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 def normalize(img: np.ndarray) -> np.ndarray:
     """uint8 HWC -> float32 HWC ImageNet-normalised."""
     return (img.astype(np.float32) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD
+
+
+def denormalize(img: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`normalize` (reference utilities/diml.py:475-486),
+    HWC float -> uint8."""
+    return np.clip((img * IMAGENET_STD + IMAGENET_MEAN) * 255.0, 0, 255).astype(np.uint8)
 
 
 def _resize_short(img, size: int):
@@ -119,3 +126,18 @@ class EvalTransform:
         img = img.convert("RGB")
         img = _center_crop(_resize_short(img, int(self.size * 256 / 224)), self.size)
         return normalize(np.asarray(img))
+
+
+def input_transform(resize=(480, 640)):
+    """MSLS's fixed-size transform (reference training_tools/msls.py,
+    ``input_transform(resize=(h, w))``): RGB, a bilinear resize to (h, w),
+    then :func:`normalize`.  The function keeps ``resize`` as ``.resize``."""
+
+    def fn(img) -> np.ndarray:
+        from PIL import Image
+
+        img = img.convert("RGB").resize((resize[1], resize[0]), Image.BILINEAR)
+        return normalize(np.asarray(img))
+
+    fn.resize = resize
+    return fn

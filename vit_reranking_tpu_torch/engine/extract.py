@@ -47,6 +47,12 @@ def embed_batch(model, images: torch.Tensor, grid_size: int = 7, use_rollout: bo
         tokens = aux.get("head_tokens", no_avg_feat)
         B, L, D = tokens.shape
         s = int(round(L**0.5))
+        if s * s != L:
+            # the JAX package takes the same square side and fails there too
+            raise ValueError(
+                f"the patch bank needs a square token map: {L} tokens from a "
+                f"{images.shape[2]}x{images.shape[3]} input are not a square grid "
+                "(give a square input size)")
         fmap = grid_resize_tokens(tokens.transpose(1, 2).reshape(B, D, s, s), grid_size)
         res = {"bank": fmap.reshape(B, D, grid_size * grid_size), "center": out}
     if use_rollout:

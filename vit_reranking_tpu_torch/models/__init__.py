@@ -30,7 +30,8 @@ def select(arch: str, opt, generator: Optional[torch.Generator] = None, img_size
     ``opt.narrow_sm`` the narrowed softmax, as the JAX package passes them
     (models/__init__.py:37-48, :87, :104); `_frozen` freezes every
     BatchNorm of a ResNet, and `_diml` arches return the per-patch map
-    first.  The branches go in the JAX package's order."""
+    first.  The branches go in the JAX package's order; ``irresnet50*`` and
+    ``*netvlad*`` raise ``NotImplementedError`` naming the missing model."""
     a = arch.lower()
     bf16 = bool(getattr(opt, "bf16", False))
     dtype = torch.bfloat16 if bf16 else torch.float32
@@ -42,10 +43,16 @@ def select(arch: str, opt, generator: Optional[torch.Generator] = None, img_size
     if a.startswith("resnet50"):
         return ResNet50Network(embed_dim=opt.embed_dim, normalize="normalize" in a,
                                bn_frozen=frozen, generator=generator, dtype=dtype)
+    if a.startswith("irresnet50"):
+        raise NotImplementedError(
+            f"architecture {arch}: IRResNet (ResNet-50 with GeM pooling) is not ported yet")
     if a.startswith("vit") or a.startswith("deit"):
         return ViTNetwork(embed_dim=opt.embed_dim, normalize="normalize" in a,
                           qk_block=opt.blk_ind, img_size=img_size, generator=generator,
                           narrow_sm=narrow_sm, dtype=dtype)
+    if "netvlad" in a:
+        raise NotImplementedError(
+            f"architecture {arch}: NetVLAD and PatchNetVLAD are not ported yet")
     if "swin" in a:
         # full Swin-T runs only at sizes where every stage's resolution is a
         # multiple of the window (224 px and up), so its bias tables never

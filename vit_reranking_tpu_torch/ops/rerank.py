@@ -1,10 +1,11 @@
 """Fused Sinkhorn rerank of each query against its top-K candidates.
 
 Port of vit_reranking_tpu/ops/rerank_pallas.py: the rollout, featvit
-(cross-attention marginals) and qk (attention-map cost) methods.  The patch
-similarity S of every (query, candidate) pair is one large product outside
-the kernel (as the JAX package leaves it to XLA); kernel K1
-(``csrc/sinkhorn_score.cu``, replacing the TPU kernel
+(cross-attention marginals; with its query != gallery form for MSLS) and qk
+(attention-map cost) methods.  The patch similarity S of every (query,
+candidate) pair is one large product outside the kernel (as the JAX
+package leaves it to XLA); kernel K1 (``csrc/sinkhorn_score.cu``,
+replacing the TPU kernel
 ``_sinkhorn_score_kernel``, rerank_pallas.py:97-234) then runs the whole
 Sinkhorn loop and the final ``sum(T * S)`` per pair, reading S once.  The qk
 method builds the OT kernel from a separate cost, the pair's q.k attention
@@ -336,15 +337,21 @@ def fused_rollout_rerank_scores(
 
 
 def _featvit_tile(feature_bank, centers, top_inds, idx, use_uniform, use_inverse, use_minus,
-                  use_soft, use_cls_token, temperature, **kw):
-    """One query tile of the featvit method (rerank_pallas.py:723-766, the
-    query == gallery case): cross-attention marginals from the patch-mean
-    (or the global embedding, ``use_cls_token``) of each side."""
+                  use_soft, use_cls_token, temperature, query_bank=None, query_centers=None,
+                  **kw):
+    """One query tile of the featvit method (rerank_pallas.py:723-766):
+    cross-attention marginals from the patch-mean (or the global embedding,
+    ``use_cls_token``) of each side.  The queries are rows ``idx`` of
+    ``query_bank`` / ``query_centers`` when given (MSLS: queries and
+    database are different banks, and ``top_inds`` index the gallery),
+    else of the gallery itself."""
+    if query_bank is None:
+        query_bank, query_centers = feature_bank, centers
     inds = top_inds[idx]
-    anchors = feature_bank[idx]  # (T, C, R)
+    anchors = query_bank[idx]  # (T, C, R)
     fb_g = feature_bank[inds]  # (T, K, C, R)
     if use_cls_token:
-        ac, fbc = centers[idx], centers[inds]
+        ac, fbc = query_centers[idx], centers[inds]
     else:
         ac, fbc = anchors.mean(dim=-1), fb_g.mean(dim=-1)
     u, v, _ = cross_attention_marginals(
@@ -387,6 +394,68 @@ def fused_featvit_rerank_scores(
             feature_bank, centers, top_inds, idx, use_uniform, use_inverse, use_minus,
             use_soft, use_cls_token, temperature, iters=iters, thresh=thresh,
             ot_temp=ot_temp, ot_part=ot_part, stream_dtype=stream_dtype,
+        ))
+    return torch.cat(out, dim=0)
+
+
+def check_cls_widths(centers: torch.Tensor, bank: torch.Tensor) -> None:
+    """``use_cls_token`` weighs each patch by its product with the image's
+    global embedding, so the two must have the bank's channel width; raise
+    ``ValueError`` naming both widths where they do not (a ResNet-50's
+    head-projected embedding against its 2048-d map)."""
+    if centers.shape[-1] != bank.shape[1]:
+        raise ValueError(
+            f"use_cls_token pairs the {centers.shape[-1]}-d global embeddings with a "
+            f"{bank.shape[1]}-d patch bank: the cross-attention marginals need one width "
+            "(rerank without --use_cls_token, or with a model whose embedding is its "
+            "patch features' width)"
+        )
+
+
+def fused_featvit_rerank_scores_qg(
+    query_bank: torch.Tensor,
+    query_centers: torch.Tensor,
+    gallery_bank: torch.Tensor,
+    gallery_centers: torch.Tensor,
+    top_inds: torch.Tensor,
+    ot_temp: float = 0.05,
+    iters: int = 100,
+    thresh: float = 1e-1,
+    query_tile: int = 128,
+    use_uniform: bool = False,
+    use_inverse: bool = False,
+    use_minus: bool = False,
+    use_soft: bool = False,
+    use_cls_token: bool = False,
+    temperature: float = 1.0,
+    ot_part: float = 1.0,
+    stream_dtype: str = "float32",
+) -> torch.Tensor:
+    """The query != gallery form of :func:`fused_featvit_rerank_scores`
+    (MSLS place recognition: distinct query and database sets, reference
+    training_tools/val.py:162-187; rerank_pallas.py:671-711).
+
+    query_bank (Nq, C, R) and gallery_bank (Ng, C, R) normalized, their
+    centers (Nq, C) and (Ng, C), top_inds (Nq, K) index the gallery.
+    Returns (Nq, K) OT scores aligned with top_inds.  (The JAX function
+    pads its last tile with the first queries again; every query's
+    candidates exit on their own, so the port's shorter last tile scores
+    the same.)
+    """
+    if use_cls_token:
+        check_cls_widths(query_centers, query_bank)
+        check_cls_widths(gallery_centers, gallery_bank)
+    Nq = query_bank.shape[0]
+    query_bank, query_centers = query_bank.float(), query_centers.float()
+    gallery_bank, gallery_centers = gallery_bank.float(), gallery_centers.float()
+    out = []
+    for start in range(0, Nq, query_tile):
+        idx = torch.arange(start, min(start + query_tile, Nq), device=query_bank.device)
+        out.append(_featvit_tile(
+            gallery_bank, gallery_centers, top_inds, idx, use_uniform, use_inverse, use_minus,
+            use_soft, use_cls_token, temperature, query_bank=query_bank,
+            query_centers=query_centers, iters=iters, thresh=thresh, ot_temp=ot_temp,
+            ot_part=ot_part, stream_dtype=stream_dtype,
         ))
     return torch.cat(out, dim=0)
 
